@@ -91,7 +91,10 @@ def zoom_nearest_indices(in_size: int, out_size: int) -> tuple[np.ndarray, np.nd
 def _matrix_on(key: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     kind, args = key[0], key[1:]
     m = {"bilinear": torch_bilinear_matrix, "zoom": scipy_zoom_matrix, "pool": adaptive_avg_pool_matrix}[kind](*args)
-    return torch.from_numpy(m).to(device=device, dtype=dtype)
+    # a normal tensor even when first asked for under inference_mode, so that a
+    # later training step can save it for its backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(device=device, dtype=dtype)
 
 
 def _apply_separable(x: torch.Tensor, kh: tuple, kw: tuple) -> torch.Tensor:

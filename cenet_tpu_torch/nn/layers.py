@@ -109,22 +109,51 @@ class RMSNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class DropPath(nn.Module):
-    """Per-sample stochastic depth (timm semantics). The identity in eval; train
-    mode belongs to the training slice and raises until then."""
+class _RandomMask(nn.Module):
+    """Shared body of :class:`DropPath` and :class:`Dropout`: in train mode with
+    a rate above 0, ``where(mask, x / keep, 0)`` in x's dtype for a Bernoulli(keep)
+    mask of :meth:`mask_shape`, drawn from ``self.generator`` (a
+    ``torch.Generator`` on x's device that the trainer attaches; never the
+    global RNG). The identity in eval mode or at rate 0."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        raise NotImplementedError
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
-        raise NotImplementedError("stochastic depth in train mode is not ported yet")
+        if self.generator is None:
+            raise RuntimeError(f"{type(self).__name__} in train mode needs a generator (see set_generator)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(self.mask_shape(x), generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-class Dropout(DropPath):
-    """Element dropout: the identity in eval, like :class:`DropPath`."""
+class DropPath(_RandomMask):
+    """Per-sample stochastic depth (timm semantics: scale by 1/keep), as
+    ``cenet_tpu/nn/layers.py::DropPath``: one draw per sample."""
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return (x.shape[0],) + (1,) * (x.ndim - 1)
+
+
+class Dropout(_RandomMask):
+    """Element dropout, as ``cenet_tpu/nn/layers.py::Dropout``: one draw per element."""
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return tuple(x.shape)
+
+
+def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Attach ``generator`` to every :class:`DropPath` and :class:`Dropout` of ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, _RandomMask):
+            mod.generator = generator
 
 
 def get_act(name: Optional[str], neg_slope: float = 0.2) -> Callable[[torch.Tensor], torch.Tensor]:

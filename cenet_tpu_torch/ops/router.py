@@ -6,7 +6,11 @@ a site reaches a kernel only when its full fp32 map is larger than
 The limit is module-level so that tests and ``chip_smoke.py`` can change it.
 CPU tensors always take the plain path. CUDA tensors above the limit always
 take the kernel: a kernel that fails raises, it is not hidden behind a fallback.
-The ring, ``@axis`` and chunked variants of the JAX routers are later work.
+When autograd records (grad mode on and an input requires grad), the kernel is
+reached through its ``torch.autograd.Function``, whose backward is the backward
+kernel; otherwise (``inference_mode``, ``no_grad``) the forward kernel is called
+alone and nothing is saved. The ring, ``@axis`` and chunked variants of the JAX
+routers are later work.
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ def _use_kernel(q: torch.Tensor, map_elems: int) -> bool:
     return q.device.type != "cpu" and map_elems * 4 > _SMALL_LIMIT
 
 
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def diff_attention_core(q1, k1, q2, k2, v, lam) -> torch.Tensor:
     """softmax(q1·k1ᵀ)·V − λ·softmax(q2·k2ᵀ)·V with shared V, in plain math
     (the reference's A₁V − λA₂V order of operations)."""
@@ -41,6 +49,8 @@ def diff_attention_interleaved(q, k, v, lam) -> torch.Tensor:
     with group-1 heads at even rows, shared v ``(B, h, M, 2d)``, fp32 λ."""
     b, h2, n, _ = q.shape
     if _use_kernel(q, (b * h2 // 2) * n * k.shape[2]):
+        if _records_grad(q, k, v, lam):
+            return K.DiffAttentionInterleavedFn.apply(q, k, v, lam)
         return K.diff_attention_interleaved_fwd(q, k, v, lam)[0]
     return diff_attention_core(q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2], v, lam)
 
@@ -49,5 +59,7 @@ def flash_attention_core(q, k, v) -> torch.Tensor:
     """softmax(q·kᵀ)·v (q pre-scaled): the kernel above the size limit on the card."""
     b, h, n, _ = q.shape
     if _use_kernel(q, b * h * n * k.shape[2]):
+        if _records_grad(q, k, v):
+            return K.AttentionFn.apply(q, k, v)
         return K.attention_fwd(q, k, v)[0]
     return plain_attention(q, k, v)

@@ -9,10 +9,12 @@ import torch
 
 from cenet_tpu_torch.core.config import get_preset
 from cenet_tpu_torch.core.device import resolve_device
+from cenet_tpu_torch.data.loader import device_put_fn
 from cenet_tpu_torch.evaluate.volume import VolumeInferenceConfig, VolumeInferencer
 from cenet_tpu_torch.models.cenet import build_model
 from cenet_tpu_torch.ops import attention_kernels as K
 from cenet_tpu_torch.ops import build
+from cenet_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,7 +32,7 @@ print(len(names), bad)
 def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True, text=True,
                          timeout=120, check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 20  # every module of the package was imported
+    assert int(out[0]) >= 30  # every module of the package, training and data included, was imported
     assert out[1].strip() == "[]"
 
 
@@ -48,7 +50,11 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
     assert o.shape == (1, 2, 40, 16) and lse1.shape == lse2.shape == (1, 2, 40)
     o, lse = K.attention_fwd(q, q, q)
     assert o.shape == (1, 4, 40, 8) and lse.shape == (1, 4, 40)
-    assert K.LAUNCHES == {"diff_attention_interleaved_fwd": 0, "attention_fwd": 0}
+    dq, dk, dv, dlam = K.diff_attention_interleaved_bwd(q, q, v, torch.tensor(0.2), lse1, lse2, v)
+    assert dq.shape == dk.shape == q.shape and dv.shape == v.shape and dlam.shape == ()
+    grads = K.attention_bwd(q, q, q, o, lse, o)
+    assert all(g.shape == q.shape for g in grads)
+    assert not any(K.LAUNCHES.values()), K.LAUNCHES
 
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
@@ -59,4 +65,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         build_model(get_preset("synapse"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VolumeInferencer(lambda x: x, VolumeInferenceConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(get_preset("synapse"), max_iterations=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_put_fn()
     assert resolve_device("cpu") == torch.device("cpu")

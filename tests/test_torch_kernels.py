@@ -67,4 +67,4 @@ def test_router_takes_plain_math_on_cpu(monkeypatch):
     torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-6)
     got = router.flash_attention_core(q, k, k)
     torch.testing.assert_close(got, K.attention_fwd_plain(q, k, k)[0], atol=2e-6, rtol=2e-6)
-    assert K.LAUNCHES == {"diff_attention_interleaved_fwd": 0, "attention_fwd": 0}
+    assert not any(K.LAUNCHES.values()), K.LAUNCHES

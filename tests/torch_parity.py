@@ -11,6 +11,13 @@ import torch
 
 from cenet_tpu_torch.convert.jax2torch import state_dict_from_jax
 
+# The port's tests run at small sizes, often beside the JAX suite in parallel
+# pytest workers on shared cores. One intra-op thread keeps torch's OpenMP pool
+# from spinning against the other workers: with the default of one thread per
+# core and six workers on eight cores, a 3.7 s CENet-b0 train-step test took
+# 94 s. Every worker imports this module when it collects the port's tests.
+torch.set_num_threads(1)
+
 
 # Cheap XLA compiles for test-only programs: the init values do not depend on them.
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
