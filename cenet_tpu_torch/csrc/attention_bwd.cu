@@ -22,8 +22,12 @@ extern "C" int cenet_attention_bwd(
     float* delta, void* dq, void* dk, void* dv, int B, int H, int N, int M, int D, int DV,
     long long sqb, long long sqh, long long sqn, long long skb, long long skh, long long skn,
     long long svb, long long svh, long long svn, long long sob, long long soh, long long son, void* stream) {
-  cenet::BwdParams p{q, k, v, dout, nullptr, lse, nullptr, delta, nullptr, dq, dk, dv, B, H, N, M, D, DV,
-                     {sqb, sqh, sqn}, {skb, skh, skn}, {svb, svh, svn}, {sob, soh, son}};
+  // dq, dk, dv contiguous
+  const cenet::Strides sdq{(long long)H * N * D, (long long)N * D, D}, sdk{(long long)H * M * D, (long long)M * D, D};
+  cenet::BwdParams p{{q, nullptr}, {k, nullptr}, v, dout, nullptr, lse, nullptr, delta, nullptr,
+                     {dq, nullptr}, {dk, nullptr}, dv, B, H, N, M, D, DV,
+                     {{sqb, sqh, sqn}, {}}, {{skb, skh, skn}, {}}, {svb, svh, svn}, {sob, soh, son},
+                     {sdq, {}}, {sdk, {}}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? cenet::bwd_launch<__nv_bfloat16, 1>(p, s) : cenet::bwd_launch<float, 1>(p, s);
 }

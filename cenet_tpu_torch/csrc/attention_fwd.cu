@@ -19,8 +19,8 @@ extern "C" int cenet_attention_fwd(
     void* o, float* lse, int B, int H, int N, int M, int D, int DV,
     long long sqb, long long sqh, long long sqn, long long skb, long long skh, long long skn,
     long long svb, long long svh, long long svn, void* stream) {
-  cenet::Params p{q, k, v, nullptr, o, lse, nullptr, B, H, N, M, D, DV,
-                  {sqb, sqh, sqn}, {skb, skh, skn}, {svb, svh, svn}};
+  cenet::Params p{{q, nullptr}, {k, nullptr}, v, nullptr, o, lse, nullptr, B, H, N, M, D, DV,
+                  {{sqb, sqh, sqn}, {}}, {{skb, skh, skn}, {}}, {svb, svh, svn}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? cenet::launch<__nv_bfloat16, 1>(p, s) : cenet::launch<float, 1>(p, s);
 }

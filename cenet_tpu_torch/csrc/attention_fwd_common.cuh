@@ -2,7 +2,8 @@
 //
 // One block computes BQ = 64 query rows of one (batch, head) for GROUPS
 // softmax groups that share V:
-//   GROUPS = 2 (diff_attention_fwd.cu):  o = softmax(q1 k1^T) V - lam * softmax(q2 k2^T) V
+//   GROUPS = 2 (diff_attention_fwd.cu, diff_attention_split_fwd.cu):
+//                                        o = softmax(q1 k1^T) V - lam * softmax(q2 k2^T) V
 //   GROUPS = 1 (attention_fwd.cu):       o = softmax(q k^T) V
 // q is pre-scaled by the caller. Logits, maxima, sums and exponentials are
 // fp32, and the output is accumulated in fp32.
@@ -30,11 +31,13 @@
 // past N are computed on zeros and not stored, keys past M get w = 0 and zero
 // V rows.
 //
-// Layouts: q, k (B, Hq, N|M, D) and v (B, Hv, M, DV), each with arbitrary
-// batch/head/row strides and unit stride on the last dim. Group g of head
-// pair p reads q/k head GROUPS*p + g (the interleaved layout of the
-// diff-attention projections: even heads group 1, odd heads group 2) and
-// v head p. o is (B, Hv, N, DV) contiguous in q's dtype.
+// Layouts: group g reads q_g (B, Hv, N, D) and k_g (B, Hv, M, D) from a base
+// pointer and a (batch, head, row) stride triple of its own, and every group
+// reads v (B, Hv, M, DV); all have unit stride on the last dim. So the split
+// operands of diff_attention_split_fwd.cu (q1/k1/q2/k2, any views) and the
+// interleaved layout of diff_attention_fwd.cu (group g of head pair p at head
+// 2p + g of one tensor: base + g head strides, head stride doubled) are the
+// same kernel. o is (B, Hv, N, DV) contiguous in q's dtype.
 
 #pragma once
 
@@ -64,16 +67,22 @@ struct Strides {
   long long b, h, n;
 };
 
+// base advanced by `elems` elements of the kernel's dtype (group 2's view of
+// an interleaved tensor starts one head stride in)
+inline const void* offset(const void* base, long long elems, int is_bf16) {
+  return static_cast<const char*>(base) + elems * (is_bf16 ? 2 : 4);
+}
+
 struct Params {
-  const void* q;
-  const void* k;
+  const void* q[2];  // per group (group 2 for GROUPS == 2 only)
+  const void* k[2];
   const void* v;
   const float* lam;  // device scalar (GROUPS == 2 only)
   void* o;
   float* lse1;
   float* lse2;
   int B, Hv, N, M, D, DV;
-  Strides sq, sk, sv;
+  Strides sq[2], sk[2], sv;
 };
 
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -108,19 +117,18 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(Params p) {
   const int q0 = blockIdx.x * BQ;
   const int head = blockIdx.y;           // v head (= head pair for GROUPS == 2)
   const int b = blockIdx.z;
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
   float lam = 0.f;
   if constexpr (GROUPS == 2) lam = *p.lam;
 
   // ---- stage this block's query rows, transposed: Qt[g][e][r]
+#pragma unroll
   for (int g = 0; g < GROUPS; ++g) {
-    const T* qg = q + b * p.sq.b + (long long)(GROUPS * head + g) * p.sq.h;
+    const T* qg = static_cast<const T*>(p.q[g]) + b * p.sq[g].b + (long long)head * p.sq[g].h;
     for (int idx = tid; idx < BQ * D; idx += THREADS) {
       const int e = idx % D, r = idx / D;
       const int n = q0 + r;
-      Qt[(g * D + e) * LD + r] = n < N ? to_f(qg[n * p.sq.n + e]) : 0.f;
+      Qt[(g * D + e) * LD + r] = n < N ? to_f(qg[n * p.sq[g].n + e]) : 0.f;
     }
   }
 
@@ -134,12 +142,13 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(Params p) {
     }
 
   auto load_k = [&](int k0) {
+#pragma unroll
     for (int g = 0; g < GROUPS; ++g) {
-      const T* kg = k + b * p.sk.b + (long long)(GROUPS * head + g) * p.sk.h;
+      const T* kg = static_cast<const T*>(p.k[g]) + b * p.sk[g].b + (long long)head * p.sk[g].h;
       for (int idx = tid; idx < BK * D; idx += THREADS) {
         const int e = idx % D, c = idx / D;
         const int m = k0 + c;
-        Kt[(g * D + e) * LD + c] = m < M ? to_f(kg[m * p.sk.n + e]) : 0.f;
+        Kt[(g * D + e) * LD + c] = m < M ? to_f(kg[m * p.sk[g].n + e]) : 0.f;
       }
     }
   };

@@ -27,8 +27,15 @@ extern "C" int cenet_diff_attention_bwd(
     int B, int H, int N, int M, int D, int DV,
     long long sqb, long long sqh, long long sqn, long long skb, long long skh, long long skn,
     long long svb, long long svh, long long svn, long long sob, long long soh, long long son, void* stream) {
-  cenet::BwdParams p{q, k, v, dout, lam, lse1, lse2, delta1, delta2, dq, dk, dv, B, H, N, M, D, DV,
-                     {sqb, sqh, sqn}, {skb, skh, skn}, {svb, svh, svn}, {sob, soh, son}};
+  // group g of head pair p is head 2p + g of q, k and of the contiguous dq, dk:
+  // base + g head strides, head stride doubled
+  const cenet::Strides sq{sqb, 2 * sqh, sqn}, sk{skb, 2 * skh, skn};
+  const cenet::Strides sdq{2LL * H * N * D, 2LL * N * D, D}, sdk{2LL * H * M * D, 2LL * M * D, D};
+  cenet::BwdParams p{{q, cenet::offset(q, sqh, is_bf16)}, {k, cenet::offset(k, skh, is_bf16)}, v, dout, lam,
+                     lse1, lse2, delta1, delta2,
+                     {dq, const_cast<void*>(cenet::offset(dq, (long long)N * D, is_bf16))},
+                     {dk, const_cast<void*>(cenet::offset(dk, (long long)M * D, is_bf16))}, dv, B, H, N, M, D, DV,
+                     {sq, sq}, {sk, sk}, {svb, svh, svn}, {sob, soh, son}, {sdq, sdq}, {sdk, sdk}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? cenet::bwd_launch<__nv_bfloat16, 2>(p, s) : cenet::bwd_launch<float, 2>(p, s);
+  return is_bf16 ? cenet::bwd_launch<__nv_bfloat16, 2, false>(p, s) : cenet::bwd_launch<float, 2, false>(p, s);
 }

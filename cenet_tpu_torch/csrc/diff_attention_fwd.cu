@@ -24,8 +24,10 @@ extern "C" int cenet_diff_attention_fwd(
     void* o, float* lse1, float* lse2, int B, int H, int N, int M, int D, int DV,
     long long sqb, long long sqh, long long sqn, long long skb, long long skh, long long skn,
     long long svb, long long svh, long long svn, void* stream) {
-  cenet::Params p{q, k, v, lam, o, lse1, lse2, B, H, N, M, D, DV,
-                  {sqb, sqh, sqn}, {skb, skh, skn}, {svb, svh, svn}};
+  // group g of head pair p is head 2p + g: base + g head strides, head stride doubled
+  cenet::Params p{{q, cenet::offset(q, sqh, is_bf16)}, {k, cenet::offset(k, skh, is_bf16)}, v, lam, o, lse1, lse2,
+                  B, H, N, M, D, DV, {{sqb, 2 * sqh, sqn}, {sqb, 2 * sqh, sqn}},
+                  {{skb, 2 * skh, skn}, {skb, 2 * skh, skn}}, {svb, svh, svn}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? cenet::launch<__nv_bfloat16, 2>(p, s) : cenet::launch<float, 2>(p, s);
 }

@@ -37,11 +37,25 @@ def _records_grad(*tensors: torch.Tensor) -> bool:
 
 
 def diff_attention_core(q1, k1, q2, k2, v, lam) -> torch.Tensor:
-    """softmax(q1·k1ᵀ)·V − λ·softmax(q2·k2ᵀ)·V with shared V, in plain math
-    (the reference's A₁V − λA₂V order of operations)."""
+    """softmax(q1·k1ᵀ)·V − λ·softmax(q2·k2ᵀ)·V with shared V on split groups
+    (q1, q2 ``(B, h, N, d)``, k1, k2 ``(B, h, M, d)``, fp32 λ): the split-group
+    kernel above the size limit on the card (``pallas_diff_attention``'s route),
+    else plain math in the reference's A₁V − λA₂V order of operations."""
+    b, h, n, _ = q1.shape
+    if _use_kernel(q1, b * h * n * k1.shape[2]):
+        if _records_grad(q1, k1, q2, k2, v, lam):
+            return K.DiffAttentionFn.apply(q1, k1, q2, k2, v, lam)
+        return K.diff_attention_fwd(q1, k1, q2, k2, v, lam)[0]
     out1 = plain_attention(q1, k1, v)
     out2 = plain_attention(q2, k2, v)
     return out1 - lam.to(out1.dtype) * out2
+
+
+def diff_attention_split(q, k, v, lam) -> torch.Tensor:
+    """Diff attention on the interleaved layout through the split groups: the
+    even and odd head views of q and k go to :func:`diff_attention_core` (the
+    JAX router's decomposition, ``flash_attention.py:245``)."""
+    return diff_attention_core(q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2], v, lam)
 
 
 def diff_attention_interleaved(q, k, v, lam) -> torch.Tensor:
@@ -52,7 +66,7 @@ def diff_attention_interleaved(q, k, v, lam) -> torch.Tensor:
         if _records_grad(q, k, v, lam):
             return K.DiffAttentionInterleavedFn.apply(q, k, v, lam)
         return K.diff_attention_interleaved_fwd(q, k, v, lam)[0]
-    return diff_attention_core(q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2], v, lam)
+    return diff_attention_split(q, k, v, lam)
 
 
 def flash_attention_core(q, k, v) -> torch.Tensor:

@@ -3,27 +3,39 @@
     python3 chip_smoke.py
 
 Needs one CUDA device and ``nvcc``; imports nothing of JAX. Two main paths
-run: volume inference and training. Phases:
+run, volume inference and training, each on two routes of the DSEB sites'
+diff attention: the interleaved route (K1, K3) the model takes, and the
+split-group route (K5, K6) of ``router.diff_attention_core``, selected here by
+rebinding ``router.diff_attention_interleaved`` (``split_route``). Phases:
 
 1. print the card's name and power limit, and build every kernel of both paths
    from ``cenet_tpu_torch/csrc`` (one ``nvcc`` per source, all in parallel);
-2. hold each forward kernel against its plain PyTorch twin at every main-path
-   shape (batch 2; fp32 with TF32 off and bf16), then at a 32-slice chunk in
-   bf16 (against the twin in slices of 2), and time kernel, twin and the
-   PyTorch library call there;
-   2b. the same for the backward kernels (dq, dk, dv, in max-abs and in norm,
-   and dλ for the diff kernel) at batch 2; at the training batch of 8, at the
-   sites it routes, forward and backward kernels in fp32 and bf16 against the
-   twins in slices of 2, and the backward's times in bf16;
+2. hold each forward kernel (K1, K2, K5) against its plain PyTorch twin at
+   every main-path shape (batch 2; fp32 with TF32 off and bf16), then at a
+   32-slice chunk in bf16 (against the twin in slices of 2), K5 also against
+   K1 on the same inputs, and time kernel, twin and the PyTorch library call
+   there;
+   2b. the same for the backward kernels (K3, K4 at every site; K6, K7 at the
+   DSEB sites and K8 at the dec1 site that training routes) on their gradients,
+   in max-abs and in norm, and dλ for the diff kernels, at batch 2; at the
+   training batch of 8, forward and backward kernels in fp32 and bf16 against
+   the twins in slices of 2, the backward's times in bf16, and whether two
+   runs on the same inputs are bit-identical;
 3. slice parity: a seeded CENet-b2 (Synapse preset) on 2 slices at 224², fp32
    on the card (kernels routed) against fp32 on the CPU (twins), then bf16;
    3b. train-step parity: one fp32 forward/backward of the same model in train
    mode on 2 labelled images, card (kernels) and CPU (twins) each against the
    same step in float64 on the CPU; then at batch 8 the card's kernels against
    its twins;
+   3c. the split route's train step: one fp32 step at batch 8 on the split
+   route (K5, K6) against the interleaved route from the same weights and
+   batch, then the same with K7 and K8 swapped in for K6 and K4;
 4. the volume path: ``VolumeInferencer`` + ``run_inference`` in bf16 on two
    seeded synthetic CT cases (64 × 512 × 512, labels 0–8), with the kernel
    launch counts of that run;
+   4b. the split route's volume path: one bf16 chunk through ``make_predict_fn``
+   and one synthetic case through ``VolumeInferencer`` on both routes, with
+   the split run's launch counts and slices/s;
 5. where one chunk's time goes: the bf16 forward of 32 slices timed with CUDA
    events, and its device time by kernel from ``torch.profiler``;
 6. the training path: 64 synthetic 512² slices written as ``.npz`` with a
@@ -32,7 +44,9 @@ run: volume inference and training. Phases:
    0.1): img/s through the loader, the wait on it, the step's wall time on a
    resident batch, every loss, peak memory and the launch counts of the run;
 7. where one training step's time goes: ``torch.profiler`` over one bf16 step
-   (the card's busy time, and the host's).
+   (the card's busy time, and the host's);
+   7b. ten resident bf16 steps of phase 6's trainer on the split route: step
+   ms, launch counts, and one profiled step beside phase 7's.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``; the two before it
@@ -45,6 +59,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -121,7 +136,7 @@ def fwd_check(kernel, args, got, where):
     lim = TOL_FP32
     if args[0].dtype == torch.bfloat16:
         # the twin with v kept in bf16 rounds w to bf16 as the kernel does
-        want_w = plain_fn(kernel)(args[0].float(), args[1].float(), *args[2:])[0]
+        want_w = plain_fn(kernel)(*[a if i == v_index(kernel) else a.float() for i, a in enumerate(args)])[0]
         lim = bf16_o_limit(want[0], want_w)
         out["w_term"], out["err_o_vs_w_rounded"] = amax(want_w - want[0]), amax(got[0].float() - want_w)
     out["limit_o"], out["share_o"] = lim, e_o / lim
@@ -130,42 +145,94 @@ def fwd_check(kernel, args, got, where):
     return out
 
 
-# Main-path sites of a Synapse chunk: (site, kernel, h, n, d, dv). Diff attention:
-# q/k (B, 2h, N, d), v (B, h, N, 2d); attention: q/k (B, h, N, d), v (B, h, N, dv).
-SITES = [
-    ("DSEB1", "diff_attention_interleaved_fwd", 8, 3136, 8, 16),
-    ("DSEB2", "diff_attention_interleaved_fwd", 8, 784, 16, 32),
-    ("DSEB3", "diff_attention_interleaved_fwd", 16, 196, 20, 40),
-    ("dec1", "attention_fwd", 1, 3136, 64, 64),
-    ("dec2", "attention_fwd", 1, 784, 128, 128),
-]
+# Main-path sites of a Synapse chunk: (site, h, n, d, dv). Diff attention: q/k
+# (B, 2h, N, d), v (B, h, N, 2d), and for the split kernel the head views
+# q[:, 0::2] … k[:, 1::2] of the same q/k; attention: q/k (B, h, N, d), v (B, h, N, dv).
+DIFF_SITES = [("DSEB1", 8, 3136, 8, 16), ("DSEB2", 8, 784, 16, 32), ("DSEB3", 16, 196, 20, 40)]
+ATTN_SITES = [("dec1", 1, 3136, 64, 64), ("dec2", 1, 784, 128, 128)]
+TRAIN_SITES = ("DSEB1", "DSEB2", "dec1")  # routed at the training batch of 8
+# (site, kernel, h, n, d, dv) for phase 2 and phase 2b
+SITES = ([(s, "diff_attention_interleaved_fwd", *dims) for s, *dims in DIFF_SITES]
+         + [(s, "attention_fwd", *dims) for s, *dims in ATTN_SITES]
+         + [(s, "diff_attention_fwd", *dims) for s, *dims in DIFF_SITES])
+BWD_SITES = ([(s, "diff_attention_interleaved_bwd", *dims) for s, *dims in DIFF_SITES]
+             + [(s, "attention_bwd", *dims) for s, *dims in ATTN_SITES]
+             + [(s, k, *dims) for k in ("diff_attention_bwd", "diff_attention_bwd_split")
+                for s, *dims in DIFF_SITES if s in TRAIN_SITES]
+             + [(s, "attention_bwd_fused", *dims) for s, *dims in ATTN_SITES if s in TRAIN_SITES])
+PALLAS = "cenet_tpu/ops/pallas_attention.py"
+# ``path``: the run whose launch counts the kernels line reports
 KERNELS = {
     "diff_attention_interleaved_fwd": dict(
-        source="cenet_tpu_torch/csrc/diff_attention_fwd.cu",
-        replaces="cenet_tpu/ops/pallas_attention.py:826 (_diff_fwd_pair_impl)", per_chunk=3),
+        source="cenet_tpu_torch/csrc/diff_attention_fwd.cu", replaces=f"{PALLAS}:826 (_diff_fwd_pair_impl)",
+        path="volume"),
     "attention_fwd": dict(
-        source="cenet_tpu_torch/csrc/attention_fwd.cu",
-        replaces="cenet_tpu/ops/pallas_attention.py:90 (_pallas_attention_fwd_impl)", per_chunk=2),
+        source="cenet_tpu_torch/csrc/attention_fwd.cu", replaces=f"{PALLAS}:90 (_pallas_attention_fwd_impl)",
+        path="volume"),
+    "diff_attention_fwd": dict(
+        source="cenet_tpu_torch/csrc/diff_attention_split_fwd.cu", replaces=f"{PALLAS}:360 (_diff_fwd_impl)",
+        path="volume-split"),
 }
 # backward kernels and the forward kernel each differentiates
 BWD_KERNELS = {
     "diff_attention_interleaved_bwd": dict(
         source="cenet_tpu_torch/csrc/diff_attention_bwd.cu", fwd="diff_attention_interleaved_fwd",
-        replaces="cenet_tpu/ops/pallas_attention.py:865 (_diff_bwd_pair_impl)"),
+        replaces=f"{PALLAS}:865 (_diff_bwd_pair_impl)", path="train"),
     "attention_bwd": dict(
         source="cenet_tpu_torch/csrc/attention_bwd.cu", fwd="attention_fwd",
-        replaces="cenet_tpu/ops/pallas_attention.py:261 (_pallas_attention_bwd_impl)"),
+        replaces=f"{PALLAS}:261 (_pallas_attention_bwd_impl)", path="train"),
+    "diff_attention_bwd": dict(
+        source="cenet_tpu_torch/csrc/diff_attention_split_bwd.cu", fwd="diff_attention_fwd",
+        replaces=f"{PALLAS}:545 (_diff_bwd_onekernel_impl)", path="train-split"),
+    "diff_attention_bwd_split": dict(
+        source="cenet_tpu_torch/csrc/diff_attention_split_bwd_two_kernel.cu", fwd="diff_attention_fwd",
+        replaces=f"{PALLAS}:609 (_diff_bwd_impl)", path="train-split (swapped)"),
+    "attention_bwd_fused": dict(
+        source="cenet_tpu_torch/csrc/attention_bwd_fused.cu", fwd="attention_fwd",
+        replaces=f"{PALLAS}:212 (_pallas_attention_bwd_fused_impl)", path="train-split (swapped)"),
 }
+SPLIT_BWD = ("diff_attention_bwd", "diff_attention_bwd_split")
+DIFF_BWD = ("diff_attention_interleaved_bwd", *SPLIT_BWD)  # these also give dλ
+# launches per 32-slice chunk on each route (every kernel not listed: none)
+VOLUME_PER_CHUNK = {"interleaved": {"diff_attention_interleaved_fwd": 3, "attention_fwd": 2},
+                    "split": {"diff_attention_fwd": 3, "attention_fwd": 2}}
 # launches per training step at B=8 (DSEB1, DSEB2 and dec1 are routed; DSEB3
 # and dec2 only from B=14), and at B=2 in phase 3b, where the same three are
-TRAIN_PER_STEP = {"diff_attention_interleaved_fwd": 2, "attention_fwd": 1,
-                  "diff_attention_interleaved_bwd": 2, "attention_bwd": 1}
-TRAIN_SITES = ("DSEB1", "DSEB2", "dec1")  # routed at the training batch
+TRAIN_PER_STEP = {
+    "interleaved": {"diff_attention_interleaved_fwd": 2, "attention_fwd": 1,
+                    "diff_attention_interleaved_bwd": 2, "attention_bwd": 1},
+    "split": {"diff_attention_fwd": 2, "attention_fwd": 1, "diff_attention_bwd": 2, "attention_bwd": 1},
+    "split, K7 and K8": {"diff_attention_fwd": 2, "attention_fwd": 1, "diff_attention_bwd_split": 2,
+                         "attention_bwd_fused": 1},
+}
 
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def check_launches(launched, per_unit, units, where):
+    """Every kernel launched exactly ``per_unit[name] * units`` times (0 if not listed)."""
+    want = {name: per_unit.get(name, 0) * units for name in launched}
+    check(launched == want, f"{where}: launches {launched}, expected {want}")
+
+
+@contextlib.contextmanager
+def split_route(swap_backwards=False):
+    """While open, the DSEB sites take the split-group route: the model's
+    ``router.diff_attention_interleaved`` is rebound to ``router.diff_attention_split``,
+    whose ``diff_attention_core`` reaches K5 (and K6 under autograd) above the
+    size limit. With ``swap_backwards``, ``DiffAttentionFn`` and ``AttentionFn``
+    find K7 and K8 in place of K6 and K4. The package itself has no switch."""
+    saved = router.diff_attention_interleaved, K.diff_attention_bwd, K.attention_bwd
+    router.diff_attention_interleaved = router.diff_attention_split
+    if swap_backwards:
+        K.diff_attention_bwd, K.attention_bwd = K.diff_attention_bwd_split, K.attention_bwd_fused
+    try:
+        yield
+    finally:
+        router.diff_attention_interleaved, K.diff_attention_bwd, K.attention_bwd = saved
 
 
 def emit(obj) -> None:
@@ -185,32 +252,46 @@ def time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def split_args(args):
+    """The split kernel's arguments (q1, k1, q2, k2, v, λ) for the interleaved
+    kernel's (q, k, v, λ): the even and odd head views, read in place."""
+    q, k, v, lam = args
+    return q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2], v, lam
+
+
 def site_inputs(kernel, b, h, n, d, dv, dtype, gen):
     """Inputs laid out as the model hands them over: the diff-attention q/k/v are
-    transposed views of (B, N, heads, d) projections; q is pre-scaled."""
+    transposed views of (B, N, heads, d) projections (for the split kernel, their
+    head views); q is pre-scaled."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
 
-    if kernel == "diff_attention_interleaved_fwd":
+    if kernel in ("diff_attention_interleaved_fwd", "diff_attention_fwd"):
         q = (rnd(b, n, 2 * h, d) * d**-0.5).transpose(1, 2)
-        return q, rnd(b, n, 2 * h, d).transpose(1, 2), rnd(b, n, h, dv).transpose(1, 2), torch.tensor(0.2, device=DEV)
+        args = q, rnd(b, n, 2 * h, d).transpose(1, 2), rnd(b, n, h, dv).transpose(1, 2), torch.tensor(0.2, device=DEV)
+        return args if kernel == "diff_attention_interleaved_fwd" else split_args(args)
     return rnd(b, h, n, d) * d**-0.5, rnd(b, h, n, d), rnd(b, h, n, dv)
 
 
 def kernel_fn(kernel):
-    return K.diff_attention_interleaved_fwd if kernel == "diff_attention_interleaved_fwd" else K.attention_fwd
+    return getattr(K, kernel)
 
 
 def plain_fn(kernel):
-    return K.diff_attention_interleaved_fwd_plain if kernel == "diff_attention_interleaved_fwd" else K.attention_fwd_plain
+    return getattr(K, kernel + "_plain")
+
+
+def v_index(kernel):
+    """Where v sits among the forward kernel's arguments."""
+    return 4 if kernel == "diff_attention_fwd" else 2
 
 
 def library_fn(kernel, args):
     """One PyTorch library computation of the same function (timed as a yardstick only)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if kernel == "diff_attention_interleaved_fwd":
-        q, k, v, lam = args
-        return lambda: sdpa(q[:, 0::2], k[:, 0::2], v, scale=1.0) - lam * sdpa(q[:, 1::2], k[:, 1::2], v, scale=1.0)
+    if kernel in ("diff_attention_interleaved_fwd", "diff_attention_fwd"):
+        q1, k1, q2, k2, v, lam = split_args(args) if kernel == "diff_attention_interleaved_fwd" else args
+        return lambda: sdpa(q1, k1, v, scale=1.0) - lam * sdpa(q2, k2, v, scale=1.0)
     q, k, v = args
     return lambda: sdpa(q, k, v, scale=1.0)
 
@@ -218,7 +299,7 @@ def library_fn(kernel, args):
 def bound(kernel, b, h, n, d, dv, itemsize):
     """(ms for the operations, ms for the bytes): FLOPs over the bf16 peak, and
     bytes (inputs read once, outputs written once) over the memory rate."""
-    groups = 2 if kernel == "diff_attention_interleaved_fwd" else 1
+    groups = 2 if kernel in ("diff_attention_interleaved_fwd", "diff_attention_fwd") else 1
     flops = b * h * (groups * 2 * n * n * d + 2 * n * n * dv)
     nbytes = itemsize * b * (groups * h * n * d * 2 + h * n * dv * 2) + 4 * b * h * n * groups
     return flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -228,9 +309,29 @@ def bound_by(t_ops, t_bytes):
     return "operations" if t_ops >= t_bytes else "bytes"
 
 
+def fwd_inputs(kernel, b, h, n, d, dv, dtype, gen):
+    """``site_inputs`` and, for the split kernel, the interleaved inputs whose
+    head views they are (else None), so that K5 can be held against K1."""
+    if kernel == "diff_attention_fwd":
+        inter = site_inputs("diff_attention_interleaved_fwd", b, h, n, d, dv, dtype, gen)
+        return split_args(inter), inter
+    return site_inputs(kernel, b, h, n, d, dv, dtype, gen), None
+
+
+def pair_check(got, inter, lim, where):
+    """K5's (o, LSEs) against K1's on the interleaved inputs its head views come
+    from: the same arithmetic, held to the twin's limits. Returns the readings."""
+    pair = K.diff_attention_interleaved_fwd(*inter)
+    e_o = amax(got[0].float() - pair[0].float())
+    e_l = max(amax(g - p) for g, p in zip(got[1:], pair[1:]))
+    check(e_o <= lim and e_l <= TOL_FP32, f"diff_attention_fwd against K1 at {where}: o {e_o} (limit {lim}), "
+          f"lse {e_l} (limit {TOL_FP32})")
+    return {"vs_k1_err_o": e_o, "vs_k1_err_lse": e_l}
+
+
 def phase_kernels():
     """Kernel vs twin at batch 2 (fp32, bf16), then at a 32-slice chunk (bf16,
-    held against the twin in slices of 2) with times."""
+    held against the twin in slices of 2) with times; K5 also against K1."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -239,19 +340,25 @@ def phase_kernels():
     for site, kernel, h, n, d, dv in SITES:
         row = {"site": site, "kernel": kernel}
         for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            args = site_inputs(kernel, 2, h, n, d, dv, dtype, gen)
+            args, inter = fwd_inputs(kernel, 2, h, n, d, dv, dtype, gen)
             got = kernel_fn(kernel)(*args)
-            row.update({f"{label}_{k}": v for k, v in fwd_check(kernel, args, got, f"{site} {label}").items()})
+            r = fwd_check(kernel, args, got, f"{site} {label}")
+            if inter is not None:
+                r.update(pair_check(got, inter, r["limit_o"], f"{site} {label}"))
+            row.update({f"{label}_{k}": v for k, v in r.items()})
             if label == "bf16":
                 errs[kernel] = max(errs[kernel], row["bf16_err_o"])
         args2 = site_inputs(kernel, 2, h, n, d, dv, torch.bfloat16, gen)
         row["plain_ms_b2"] = time_ms(lambda: plain_fn(kernel)(*args2), reps=3)
-        args = site_inputs(kernel, CHUNK, h, n, d, dv, torch.bfloat16, gen)
+        args, inter = fwd_inputs(kernel, CHUNK, h, n, d, dv, torch.bfloat16, gen)
         got = kernel_fn(kernel)(*args)
         row.update({f"chunk_{k}": v for k, v in
                     in_slices(fwd_check, kernel, args, got, f"{site} bf16 chunk of {CHUNK}").items()})
+        if inter is not None:
+            row.update({f"chunk_{k}": v for k, v in
+                        pair_check(got, inter, row["chunk_limit_o"], f"{site} bf16 chunk of {CHUNK}").items()})
         errs[kernel] = max(errs[kernel], row["chunk_err_o"])
-        del got
+        del got, inter
         row["ms"] = time_ms(lambda: kernel_fn(kernel)(*args))
         # the twin's N×N maps at B=32 do not fit at once: time it over the same
         # inputs in slices of 2
@@ -289,26 +396,31 @@ def grad_limits(dtype, want, want_r):
 def bwd_call_args(kernel, b, h, n, d, dv, dtype, gen):
     """The forward inputs at a site as the model hands them over, and the
     backward wrapper's arguments: those inputs, the forward's fp32 LSE (and o in
-    the input dtype for the attention kernel) from the fp32 twin (in slices of
+    the input dtype for the attention kernels) from the fp32 twin (in slices of
     2), and a strided dO."""
     fwd = BWD_KERNELS[kernel]["fwd"]
     args = site_inputs(fwd, b, h, n, d, dv, dtype, gen)
     do = torch.randn(b, n, h, dv, generator=gen, device=DEV).to(dtype).transpose(1, 2)
     fw = [torch.cat(parts) for parts in
           zip(*[plain_fn(fwd)(*[a.float() for a in piece(args, i)]) for i in range(0, b, 2)])]
-    if kernel == "diff_attention_interleaved_bwd":
-        q, k, v, lam = args
-        return args, (q, k, v, lam, fw[1], fw[2], do)
-    q, k, v = args
-    return args, (q, k, v, fw[0].to(dtype), fw[1], do)
+    if kernel in DIFF_BWD:
+        return args, (*args, fw[1], fw[2], do)
+    return args, (*args, fw[0].to(dtype), fw[1], do)
 
 
 def bwd_kernel_fn(kernel):
-    return K.diff_attention_interleaved_bwd if kernel == "diff_attention_interleaved_bwd" else K.attention_bwd
+    return getattr(K, kernel)
 
 
 def bwd_plain_fn(kernel):
-    return K.diff_attention_interleaved_bwd_plain if kernel == "diff_attention_interleaved_bwd" else K.attention_bwd_plain
+    """The twin: K6 and K7 share one, as K4 and K8 do."""
+    if kernel in SPLIT_BWD:
+        return K.diff_attention_bwd_plain
+    return K.diff_attention_interleaved_bwd_plain if kernel in DIFF_BWD else K.attention_bwd_plain
+
+
+def grad_names(kernel):
+    return ("dq1", "dk1", "dq2", "dk2", "dv") if kernel in SPLIT_BWD else ("dq", "dk", "dv")
 
 
 def bwd_refs(kernel, call):
@@ -316,7 +428,15 @@ def bwd_refs(kernel, call):
     twin that rounds ds (dq: to k's dtype, dk: to q's) or p/w (dv: to dO's dtype)
     as the kernel does but keeps the gradient itself in fp32."""
     plain = bwd_plain_fn(kernel)
-    if kernel == "diff_attention_interleaved_bwd":
+    if kernel in SPLIT_BWD:
+        q1, k1, q2, k2, v, lam, l1, l2, do = call
+        f = [t.float() for t in (q1, k1, q2, k2, v)]
+        want = plain(*f, lam, l1, l2, do.float())
+        r_dq = plain(f[0], k1, f[2], k2, f[4], lam, l1, l2, do)
+        r_dk = plain(q1, f[1], q2, f[3], f[4], lam, l1, l2, do)
+        r_dv = plain(*f, lam, l1, l2, do)
+        return want, (r_dq[0], r_dk[1], r_dq[2], r_dk[3], r_dv[4])
+    if kernel in DIFF_BWD:
         q, k, v, lam, l1, l2, do = call
         fq, fk, fv, fdo = q.float(), k.float(), v.float(), do.float()
         want = plain(fq, fk, fv, lam, l1, l2, fdo)
@@ -331,13 +451,14 @@ def bwd_refs(kernel, call):
 
 
 def bwd_check(kernel, call, got, where):
-    """Hold a backward kernel's dq, dk, dv (``got``) against the twin on the same
-    inputs, in max-abs and in norm (``grad_limits``); raises past a limit.
-    Returns the readings, with the twin's dλ for the diff kernel."""
+    """Hold a backward kernel's gradients (``got``, dλ left out) against the twin
+    on the same inputs, in max-abs and in norm (``grad_limits``); raises past a
+    limit. Returns the readings, with the twin's dλ for the diff kernels."""
     dtype = call[0].dtype
     want, want_r = bwd_refs(kernel, call)
+    names = grad_names(kernel)
     out = {}
-    for name, g, w, r, (lim, nlim) in zip(("dq", "dk", "dv"), got, want, want_r, grad_limits(dtype, want[:3], want_r)):
+    for name, g, w, r, (lim, nlim) in zip(names, got, want, want_r, grad_limits(dtype, want[:len(names)], want_r)):
         e, ne = amax(g.float() - w), rel_norm(g, w)
         out.update({f"{name}_err": e, f"{name}_limit": lim, f"{name}_share": e / lim, f"{name}_norm_err": ne,
                     f"{name}_norm_limit": nlim, f"{name}_norm_share": ne / nlim, f"{name}_max_abs": amax(w)})
@@ -345,41 +466,44 @@ def bwd_check(kernel, call, got, where):
             out[f"{name}_round_term"], out[f"{name}_norm_round_term"] = amax(r.float() - w), rel_norm(r, w)
         check(g.dtype == dtype and e <= lim and ne <= nlim,
               f"{kernel} at {where}: {name} err {e} (limit {lim}), norm err {ne} (limit {nlim})")
-    if kernel == "diff_attention_interleaved_bwd":
-        out["dlam_want"] = float(want[3])
+    if kernel in DIFF_BWD:
+        out["dlam_want"] = float(want[len(names)])
     return out
 
 
-def dlam_check(got, want, where):
+def dlam_check(kernel, got, want, where):
     """dλ is fp32 in both dtypes: one sum over the per-row δ₂ in another order,
     so 1e-4 of max(1, |dλ|). Returns the error."""
     e, lim = abs(float(got) - want), TOL_FP32 * max(1.0, abs(want))
-    check(e <= lim, f"diff_attention_interleaved_bwd at {where}: dlam err {e} (limit {lim})")
+    check(e <= lim, f"{kernel} at {where}: dlam err {e} (limit {lim})")
     return e
 
 
 def bwd_library_fn(kernel, call):
     """The backward of ``scaled_dot_product_attention`` through autograd on the
-    same inputs and dO (for the diff kernel, of the two-call composition); a
-    yardstick the port never calls."""
+    same inputs and dO (for the diff kernels, of the two-call composition
+    o₁ − λo₂); a yardstick the port never calls."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v = [t.detach().requires_grad_() for t in call[:3]]
     do = call[-1]
-    if kernel == "diff_attention_interleaved_bwd":
-        lam = call[3]
-        o = sdpa(q[:, 0::2], k[:, 0::2], v, scale=1.0) - lam * sdpa(q[:, 1::2], k[:, 1::2], v, scale=1.0)
+    if kernel in SPLIT_BWD:
+        leaves = q1, k1, q2, k2, v = [t.detach().requires_grad_() for t in call[:5]]
+        o = sdpa(q1, k1, v, scale=1.0) - call[5] * sdpa(q2, k2, v, scale=1.0)
     else:
-        o = sdpa(q, k, v, scale=1.0)
-    return lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+        leaves = q, k, v = [t.detach().requires_grad_() for t in call[:3]]
+        if kernel in DIFF_BWD:
+            o = sdpa(q[:, 0::2], k[:, 0::2], v, scale=1.0) - call[3] * sdpa(q[:, 1::2], k[:, 1::2], v, scale=1.0)
+        else:
+            o = sdpa(q, k, v, scale=1.0)
+    return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
 
 
 def bwd_bound(kernel, b, h, n, d, dv, itemsize):
     """(ms for the operations, ms for the bytes) of the least backward work:
-    FLOPs 2·N·M·(6d + 2dv) per head pair for the diff kernel (s₁, s₂, G, dq₁₂,
+    FLOPs 2·N·M·(6d + 2dv) per head pair for the diff kernels (s₁, s₂, G, dq₁₂,
     dk₁₂, dv), 2·N·M·(3d + 2dv) per head for attention (s, dP, dq, dk, dv); bytes
     of q, k, v, dO (and o, which Δ needs) and the LSEs read once, dq, dk, dv
     written once."""
-    if kernel == "diff_attention_interleaved_bwd":
+    if kernel in DIFF_BWD:
         flops = b * h * 2 * n * n * (6 * d + 2 * dv)
         nbytes = itemsize * b * (4 * 2 * h * n * d + 3 * h * n * dv) + 4 * b * h * n * 2
     else:
@@ -388,45 +512,58 @@ def bwd_bound(kernel, b, h, n, d, dv, itemsize):
     return flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def bwd_site_check(kernel, call, where):
+    """Run a backward kernel on ``call`` and hold it against its twin (in slices
+    of 2), dλ included for the diff kernels. Returns the readings."""
+    got = bwd_kernel_fn(kernel)(*call)
+    n = len(grad_names(kernel))
+    r = in_slices(bwd_check, kernel, call, got[:n], where)
+    if kernel in DIFF_BWD:
+        r["dlam_err"] = dlam_check(kernel, got[n], r["dlam_want"], where)
+    return r
+
+
 def phase_bwd_kernels():
-    """Backward kernel vs twin at every main-path shape at batch 2 (fp32, bf16);
-    then, at the sites the training batch of 8 routes, the forward and backward
-    kernels at that batch in bf16, held against the twins in slices of 2, and
-    timed."""
+    """Backward kernel vs twin at batch 2 (fp32, bf16) at its sites; then, at the
+    sites the training batch of 8 routes, the forward and backward kernels at
+    that batch in fp32 and bf16, held against the twins in slices of 2, and the
+    backward timed in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(1)
     errs = {k: 0.0 for k in BWD_KERNELS}
     fwd_errs = {k: 0.0 for k in KERNELS}
+    fwd_done = set()  # (forward kernel, site) held at the training batch already
     sites = []
-    for site, fwd, h, n, d, dv in SITES:
-        kernel = next(k for k, spec in BWD_KERNELS.items() if spec["fwd"] == fwd)
+    for site, kernel, h, n, d, dv in BWD_SITES:
+        fwd = BWD_KERNELS[kernel]["fwd"]
         row = {"site": site, "kernel": kernel}
         for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             _, call = bwd_call_args(kernel, 2, h, n, d, dv, dtype, gen)
-            got = bwd_kernel_fn(kernel)(*call)
-            r = bwd_check(kernel, call, got[:3], f"{site} {label}")
-            if kernel == "diff_attention_interleaved_bwd":
-                r["dlam_err"] = dlam_check(got[3], r["dlam_want"], f"{site} {label}")
+            r = bwd_site_check(kernel, call, f"{site} {label}")
             row.update({f"{label}_{k}": v for k, v in r.items()})
             if label == "bf16":
-                errs[kernel] = max(errs[kernel], r["dq_err"], r["dk_err"], r["dv_err"])
-            del call, got
+                errs[kernel] = max(errs[kernel], *(r[f"{g}_err"] for g in grad_names(kernel)))
+            del call
         torch.cuda.empty_cache()
         if site in TRAIN_SITES:
             for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
                 where, key = f"{site} {label} batch {TRAIN_B}", f"b{TRAIN_B}_{label}"
                 args, call = bwd_call_args(kernel, TRAIN_B, h, n, d, dv, dtype, gen)
-                got = kernel_fn(fwd)(*args)
-                row.update({f"{key}_fwd_{k}": v for k, v in in_slices(fwd_check, fwd, args, got, where).items()})
-                got = bwd_kernel_fn(kernel)(*call)
-                r = in_slices(bwd_check, kernel, call, got[:3], where)
-                if kernel == "diff_attention_interleaved_bwd":
-                    r["dlam_err"] = dlam_check(got[3], r["dlam_want"], where)
-                row.update({f"{key}_{k}": v for k, v in r.items()})
-                del got
-            fwd_errs[fwd] = max(fwd_errs[fwd], row[f"b{TRAIN_B}_bf16_fwd_err_o"])
-            errs[kernel] = max(errs[kernel], *(row[f"b{TRAIN_B}_bf16_{g}_err"] for g in ("dq", "dk", "dv")))
+                if (fwd, site) not in fwd_done:
+                    got = kernel_fn(fwd)(*args)
+                    row.update({f"{key}_fwd_{k}": v for k, v in in_slices(fwd_check, fwd, args, got, where).items()})
+                    del got
+                row.update({f"{key}_{k}": v for k, v in bwd_site_check(kernel, call, where).items()})
+            if (fwd, site) not in fwd_done:
+                fwd_errs[fwd] = max(fwd_errs[fwd], row[f"b{TRAIN_B}_bf16_fwd_err_o"])
+                fwd_done.add((fwd, site))
+            errs[kernel] = max(errs[kernel], *(row[f"b{TRAIN_B}_bf16_{g}_err"] for g in grad_names(kernel)))
+            # repeat runs on the same inputs: bit-identical unless the kernel sums with atomics
+            first, again = bwd_kernel_fn(kernel)(*call), bwd_kernel_fn(kernel)(*call)
+            row["repeat_bit_identical"] = {g: bool(torch.equal(a, b))
+                                           for g, a, b in zip((*grad_names(kernel), "dlam"), first, again)}
+            del first, again
             # times on the bf16 inputs of the training batch
             row["ms"] = time_ms(lambda: bwd_kernel_fn(kernel)(*call))
             # the twin's maps at B=8 are large: time it over the same inputs in slices of 2
@@ -464,7 +601,7 @@ def phase_slice_parity():
     agree16 = float((gpu16.argmax(1) == gpu32.argmax(1)).float().mean())
     emit({"phase": "slice_parity", "max_abs_logit_diff_fp32": diff, "argmax_agree_fp32": agree,
           "argmax_agree_bf16_vs_fp32": agree16, "launches_fp32_forward": launched})
-    check(all(launched[k] > 0 for k in KERNELS), f"the fp32 forward launched no kernel: {launched}")
+    check(all(launched[k] > 0 for k in VOLUME_PER_CHUNK["interleaved"]), f"the fp32 forward launched no kernel: {launched}")
     check(diff <= 1e-3 and agree >= 0.999, f"slice parity: max abs {diff}, argmax agreement {agree}")
     del model, cpu_model
     torch.cuda.empty_cache()
@@ -529,6 +666,20 @@ def rel_max(a, b) -> float:
     return amax(a.cpu().double() - b.cpu().double()) / max(amax(b), 1e-30)
 
 
+def summary(errs):
+    """The picked gradients, the median and the largest of per-parameter errors."""
+    top = sorted(errs.items(), key=lambda kv: kv[1], reverse=True)
+    return {"picked": {n: errs[n] for n in PARITY_GRADS}, "median": float(np.median(list(errs.values()))),
+            "above_1e-4": sum(e > 1e-4 for e in errs.values()), "top": top[:6]}
+
+
+def parity_config():
+    """The Synapse preset in fp32 with drop-path off, so that no side draws."""
+    base = get_preset("synapse")
+    return base.replace(model=dataclasses.replace(base.model, drop_path_rate=0.0),
+                        train=dataclasses.replace(base.train, amp=False))
+
+
 def phase_train_parity():
     """One fp32 forward/backward of a seeded CENet-b2 in train mode (drop-path
     off so that no side draws). At batch 2 on labelled 224² slices: the card
@@ -542,9 +693,7 @@ def phase_train_parity():
     convolution algorithm alone moves)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    base = get_preset("synapse")
-    cfg = base.replace(model=dataclasses.replace(base.model, drop_path_rate=0.0),
-                       train=dataclasses.replace(base.train, amp=False))
+    cfg = parity_config()
     x, y = labelled_slices(7, 2, 224)
     card = Trainer(cfg, 1, device=DEV, model_seed=0)
     card.model.train()
@@ -585,11 +734,6 @@ def phase_train_parity():
     vs_cpu, own = rel_errs(grads, cpu_grads), rel_errs(grads, plain_grads)
     native_vs_cpu = rel_errs(native_grads, cpu_grads)
 
-    def summary(errs):
-        top = sorted(errs.items(), key=lambda kv: kv[1], reverse=True)
-        return {"picked": {n: errs[n] for n in PARITY_GRADS}, "median": float(np.median(list(errs.values()))),
-                "above_1e-4": sum(e > 1e-4 for e in errs.values()), "top": top[:6]}
-
     losses = {"card_kernels": float(loss), "card_twins": float(plain_loss), "card_kernels_native_conv":
               float(native_loss), "cpu": float(cpu_loss), "float64": float(w_loss)}
     emit({"phase": "train_parity", "batch": 2, "losses": losses, "parameters": len(names),
@@ -599,8 +743,7 @@ def phase_train_parity():
           "grad_rel_err_card_kernels_native_conv_vs_cpu": summary(native_vs_cpu),
           "grad_rel_err_kernels_vs_twins": summary(own),
           "cpu_s": cpu_s, "float64_s": witness_s, "launches_card": launched})
-    for name, per_step in TRAIN_PER_STEP.items():
-        check(launched[name] == per_step, f"train parity: {name} launched {launched[name]} times, expected {per_step}")
+    check_launches(launched, TRAIN_PER_STEP["interleaved"], 1, "train parity")
     for run, value in losses.items():
         check(abs(value - float(w_loss)) <= TOL_LOSS, f"train parity: {run} loss {value} vs float64 {float(w_loss)}")
     for run in ("card_kernels", "cpu"):
@@ -632,9 +775,7 @@ def phase_train_parity():
     emit({"phase": "train_parity", "batch": TRAIN_B, "grad_rel_err_kernels_vs_twins": summary(own),
           "grad_rel_err_twins_native_conv_vs_twins": summary(conv),
           "launches_card": launched, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    for name, per_step in TRAIN_PER_STEP.items():
-        check(launched[name] == per_step,
-              f"train parity, batch {TRAIN_B}: {name} launched {launched[name]} times, expected {per_step}")
+    check_launches(launched, TRAIN_PER_STEP["interleaved"], 1, f"train parity, batch {TRAIN_B}")
     median = float(np.median(list(own.values())))
     check(median <= TOL_B8_MEDIAN, f"train parity, batch {TRAIN_B}: the kernels move the gradients by a median {median}")
     for n, (_, _, lim) in PARITY_GRADS.items():
@@ -642,6 +783,46 @@ def phase_train_parity():
               f"train parity, batch {TRAIN_B}: the kernels move the gradient of {n} by {own[n]} of its max (limit {lim})")
     del card, grads, plain_grads, native_grads
     torch.cuda.empty_cache()
+    return live
+
+
+def phase_split_train_parity(live):
+    """One fp32 train step at the training batch of 8 (TF32 off, drop-path off)
+    on the split route against the interleaved route, from the same weights and
+    batch: the loss within ``TOL_LOSS``, the gradients (over phase 3b's
+    parameters) within phase 3b's batch-8 limits of kernels against twins (the
+    two routes differ in fp32 summation order only: K6's dv sums P₁ᵀdO and
+    P₂ᵀdO apart, and adds over query tiles with atomics). Then the same step
+    with K7 and K8 in place of K6 and K4. Returns each run's launch counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = labelled_slices(11, TRAIN_B, 224)
+    x, y = x.to(DEV), y.to(DEV)
+    card = Trainer(parity_config(), 1, device=DEV, model_seed=0)
+    card.model.train()
+    loss, grads = card.loss_and_grads(x, y)
+    names = [n for n, _ in card.model.named_parameters()]
+    launches = {}
+    for route, swap in (("split", False), ("split, K7 and K8", True)):
+        K.reset_launches()
+        with split_route(swap_backwards=swap):
+            s_loss, s_grads = card.loss_and_grads(x, y)
+        torch.cuda.synchronize()
+        launches[route] = launched = dict(K.LAUNCHES)
+        errs = {n: rel_max(g, w) for n, g, w in zip(names, s_grads, grads) if n in live}
+        emit({"phase": "split_train_parity", "route": route, "batch": TRAIN_B, "loss": float(s_loss),
+              "loss_interleaved": float(loss), "grad_rel_err_vs_interleaved": summary(errs), "launches": launched})
+        check_launches(launched, TRAIN_PER_STEP[route], 1, f"split train parity ({route})")
+        check(abs(float(s_loss) - float(loss)) <= TOL_LOSS,
+              f"split train parity ({route}): loss {float(s_loss)} vs interleaved {float(loss)}")
+        median = float(np.median(list(errs.values())))
+        check(median <= TOL_B8_MEDIAN, f"split train parity ({route}): gradients off by a median {median} of max")
+        for n, (_, _, lim) in PARITY_GRADS.items():
+            check(errs[n] <= lim, f"split train parity ({route}): gradient of {n} off by {errs[n]} (limit {lim})")
+        del s_grads
+    del card, grads
+    torch.cuda.empty_cache()
+    return launches
 
 
 def synthetic_case(seed, d=64, h=512, w=512):
@@ -700,10 +881,53 @@ def phase_volume():
           "mean_dice": dice, "mean_hd95": hd95,
           "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     check(np.isfinite(dice) and np.isfinite(hd95) and 0.0 <= dice <= 1.0, f"metrics {dice}, {hd95}")
-    for name, spec in KERNELS.items():
-        check(launches[name] == spec["per_chunk"] * chunks,
-              f"{name} launched {launches[name]} times over {chunks} chunks, expected {spec['per_chunk']} per chunk")
+    check_launches(launches, VOLUME_PER_CHUNK["interleaved"], chunks, f"volume, {chunks} chunks")
     return launches
+
+
+def phase_split_volume():
+    """The volume path on the split route against the interleaved route: one bf16
+    32-slice chunk through ``make_predict_fn`` (probabilities within phase 3's
+    1e-3, argmax agreement ≥ 99.9%), then a synthetic 64-slice case through
+    ``VolumeInferencer`` on each route in turns (interleaved, split, split,
+    interleaved): labels agreeing on ≥ 99.9% of voxels, slices/s of each route,
+    and the launch counts of one split run. Returns those counts."""
+    model = build_model(get_preset("synapse"), device=DEV, seed=0)
+    predict = make_predict_fn(model, torch.bfloat16)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    x = torch.randn(CHUNK, 1, 224, 224, generator=gen, device=DEV)
+    inter = predict(x)
+    with split_route():
+        split = predict(x)
+    diff, agree = amax(split - inter), float((split.argmax(1) == inter.argmax(1)).float().mean())
+    inf = VolumeInferencer(predict, VolumeInferenceConfig(img_size=224, chunk=CHUNK, num_classes=9), device=DEV)
+    image = synthetic_case(1)["image"]
+    chunks = -(-image.shape[0] // CHUNK)
+    inf.predict_volume(image[:CHUNK])  # warm-up of both routes
+    with split_route():
+        inf.predict_volume(image[:CHUNK])
+    seconds = {"interleaved": [], "split": []}
+    labels = {}
+    for route in ("interleaved", "split", "split", "interleaved"):
+        with split_route() if route == "split" else contextlib.nullcontext():
+            K.reset_launches()
+            t0 = time.perf_counter()
+            labels[route] = inf.predict_volume(image)
+            seconds[route].append(time.perf_counter() - t0)
+            launched = dict(K.LAUNCHES)
+        check_launches(launched, VOLUME_PER_CHUNK[route], chunks, f"split volume ({route} route)")
+        if route == "split":
+            split_launches = launched
+    label_agree = float((labels["split"] == labels["interleaved"]).mean())
+    emit({"phase": "split_volume", "chunk_max_abs_prob_diff": diff, "chunk_argmax_agree": agree,
+          "case_label_agree": label_agree, "slices": int(image.shape[0]), "chunks": chunks,
+          "slices_per_s": {r: [image.shape[0] / t for t in ts] for r, ts in seconds.items()},
+          "launches_split": split_launches})
+    check(diff <= 1e-3 and agree >= 0.999, f"split volume: chunk probabilities off by {diff}, argmax agreement {agree}")
+    check(label_agree >= 0.999, f"split volume: labels agree on {label_agree} of the case")
+    del model
+    torch.cuda.empty_cache()
+    return split_launches
 
 
 def phase_profile(top: int = 12):
@@ -796,14 +1020,24 @@ def phase_train(warmup=3, steps=30):
           "losses": loss_values, "launches": launches,
           "launches_per_step": {k: v / steps for k, v in launches.items()}})
     check(all(np.isfinite(loss_values)), f"a training loss is not finite: {loss_values}")
-    for name, per_step in TRAIN_PER_STEP.items():
-        check(launches[name] == per_step * steps,
-              f"{name} launched {launches[name]} times over {steps} steps, expected {per_step} per step")
+    check_launches(launches, TRAIN_PER_STEP["interleaved"], steps, f"train, {steps} steps")
     return launches, trainer, images, labels
 
 
-def phase_train_profile(trainer, images, labels, top=15):
-    """Where one bf16 training step's device time goes (``torch.profiler``)."""
+# the diff-attention kernels' roles by their symbols (csrc/attention_{fwd,bwd}_common.cuh,
+# GROUPS = 2): forward (K1 or K5), dq and dk/dv of the two-launch backwards (K3,
+# K7), the one-launch backward (K6)
+DIFF_KERNEL_ROLES = {"fwd": r"attention_fwd_kernel<[^,<>]+, 2,",
+                     "bwd_dq": r"attention_bwd_dq_kernel<[^,<>]+, 2, \d+, false>",
+                     "bwd_dkv": r"attention_bwd_dkv_kernel<[^,<>]+, 2,",
+                     "bwd_one_launch": r"attention_bwd_dq_kernel<[^,<>]+, 2, \d+, true>"}
+
+
+def profile_step(trainer, images, labels, top=15):
+    """``torch.profiler`` over one training step after one unprofiled step: the
+    card's busy time, the diff-attention kernels' device ms by role, the device
+    time of the autograd scatter of head-view gradients (``aten::slice_backward``),
+    the top kernels, and the host side."""
     from torch.profiler import ProfilerActivity, profile
 
     trainer.train_step(images, labels)
@@ -817,18 +1051,51 @@ def phase_train_profile(trainer, images, labels, top=15):
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    roles = {role: sum(e.self_device_time_total for e in kernels if re.search(pat, e.key)) / 1e3
+             for role, pat in DIFF_KERNEL_ROLES.items()}
+    scatter = [e for e in events if e.key == "aten::slice_backward"]
     # the host side: operators by their own CPU time (what the Python thread spends
     # issuing the step)
     host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
-    emit({"phase": "train_profile", "step_wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1 - busy_ms / wall_ms, "kernel_names": len(kernels),
-          "kernel_launches": sum(e.count for e in kernels),
-          "top": [{"name": e.key[:120], "calls": e.count, "ms": e.self_device_time_total / 1e3}
-                  for e in kernels[:top]],
-          "host_ops": sum(e.count for e in host), "host_self_ms": sum(e.self_cpu_time_total for e in host) / 1e3,
-          "top_host": [{"name": e.key[:80], "calls": e.count, "self_ms": e.self_cpu_time_total / 1e3}
-                       for e in host[:top]]})
+    return {"step_wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms, "kernel_names": len(kernels),
+            "kernel_launches": sum(e.count for e in kernels), "diff_attention_ms": roles,
+            "slice_backward": {"calls": sum(e.count for e in scatter),
+                               "device_ms": sum(e.device_time_total for e in scatter) / 1e3},
+            "top": [{"name": e.key[:120], "calls": e.count, "ms": e.self_device_time_total / 1e3}
+                    for e in kernels[:top]],
+            "host_ops": sum(e.count for e in host), "host_self_ms": sum(e.self_cpu_time_total for e in host) / 1e3,
+            "top_host": [{"name": e.key[:80], "calls": e.count, "self_ms": e.self_cpu_time_total / 1e3}
+                         for e in host[:top]]}
+
+
+def phase_train_profile(trainer, images, labels):
+    """Where one bf16 training step's device time goes (``torch.profiler``)."""
+    emit({"phase": "train_profile", **profile_step(trainer, images, labels)})
+
+
+def phase_split_train(trainer, images, labels, steps=10):
+    """Phase 6's bf16 trainer on its resident batch, on the split route: the
+    step's ms over ``steps`` steps (CUDA events), their launch counts, and one
+    profiled step (K5 and K6 device ms, the head-view gradient scatter) beside
+    phase 7's. Returns the launch counts."""
+    with split_route():
+        trainer.train_step(images, labels)  # warm-up
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        K.reset_launches()
+        start.record()
+        for _ in range(steps):
+            trainer.train_step(images, labels)
+        end.record()
+        torch.cuda.synchronize()
+        launched = dict(K.LAUNCHES)
+        prof = profile_step(trainer, images, labels)
+    emit({"phase": "split_train", "steps": steps, "resident_step_ms": start.elapsed_time(end) / steps,
+          "launches": launched, "profile": prof})
+    check_launches(launched, TRAIN_PER_STEP["split"], steps, f"split train, {steps} steps")
+    return launched
 
 
 def main():
@@ -836,37 +1103,43 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    build.build(["diff_attention_fwd", "attention_fwd", "diff_attention_bwd", "attention_bwd"])
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "dir": str(build._build_dir())})
+    sources = [os.path.splitext(os.path.basename(spec["source"]))[0] for spec in (*KERNELS.values(), *BWD_KERNELS.values())]
+    build.build(sources)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sources, "dir": str(build._build_dir())})
 
     sites, errs = phase_kernels()
     bwd_sites, bwd_errs, train_fwd_errs = phase_bwd_kernels()
     errs = {k: max(e, train_fwd_errs[k]) for k, e in errs.items()}
     phase_slice_parity()
-    phase_train_parity()
-    launches = phase_volume()
+    live = phase_train_parity()
+    split_train_launches = phase_split_train_parity(live)
+    launches = {"volume": phase_volume(), "volume-split": phase_split_volume()}
     phase_profile()
-    train_launches, trainer, images, labels = phase_train()
+    launches["train"], trainer, images, labels = phase_train()
     phase_train_profile(trainer, images, labels)
+    launches["train-split"] = phase_split_train(trainer, images, labels)
+    launches["train-split (swapped)"] = split_train_launches["split, K7 and K8"]
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
 
-    def record(name, spec, rows, path, launched, err):
+    def record(name, spec, rows, err):
         return {
             "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
-            "path": path, "launches": launched[name], "max_abs_err": err,
+            "path": spec["path"], "launches": launches[spec["path"]][name], "max_abs_err": err,
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": bound_by(sum(r["ops_ms"] for r in rows), sum(r["bytes_ms"] for r in rows)),
             "library_ms": sum(r["library_ms"] for r in rows),
         }
 
-    # forward kernels: launches of the volume path, times for one 32-slice chunk
-    # (the sum over their sites); backward kernels: launches of the training path,
-    # times for one training step at B=8 (the sum over the sites it routes)
-    records = [record(name, spec, [r for r in sites if r["kernel"] == name], "volume", launches, errs[name])
+    # forward kernels: launches of their volume path, times for one 32-slice
+    # chunk (the sum over their sites); backward kernels: launches of their
+    # training path, times for one training step at B=8 (the sum over the sites
+    # it routes)
+    records = [record(name, spec, [r for r in sites if r["kernel"] == name], errs[name])
                for name, spec in KERNELS.items()]
-    records += [record(name, spec, [r for r in bwd_sites if r["kernel"] == name and "ms" in r], "train",
-                       train_launches, bwd_errs[name]) for name, spec in BWD_KERNELS.items()]
+    records += [record(name, spec, [r for r in bwd_sites if r["kernel"] == name and "ms" in r], bwd_errs[name])
+                for name, spec in BWD_KERNELS.items()]
+    check(all(r["launches"] > 0 for r in records), f"a kernel was not launched on its path: {records}")
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,6 +54,14 @@ def test_cpu_tensors_never_touch_the_build(monkeypatch):
     assert dq.shape == dk.shape == q.shape and dv.shape == v.shape and dlam.shape == ()
     grads = K.attention_bwd(q, q, q, o, lse, o)
     assert all(g.shape == q.shape for g in grads)
+    grads = K.attention_bwd_fused(q, q, q, o, lse, o)
+    assert all(g.shape == q.shape for g in grads)
+    q1, q2 = q[:, 0::2], q[:, 1::2]
+    o, lse1, lse2 = K.diff_attention_fwd(q1, q1, q2, q2, v, torch.tensor(0.2))
+    assert o.shape == (1, 2, 40, 16) and lse1.shape == lse2.shape == (1, 2, 40)
+    for bwd in (K.diff_attention_bwd, K.diff_attention_bwd_split):
+        *grads, dlam = bwd(q1, q1, q2, q2, v, torch.tensor(0.2), lse1, lse2, o)
+        assert [g.shape for g in grads] == [q1.shape] * 4 + [v.shape] and dlam.shape == ()
     assert not any(K.LAUNCHES.values()), K.LAUNCHES
 
 

@@ -5,7 +5,10 @@ port module (strict load). Arrays cross between the frameworks as numpy; NHWC
 (JAX) and NCHW (port) are converted here.
 """
 
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -70,3 +73,45 @@ def nchw(x_nhwc):
 
 def nhwc(x_nchw):
     return x_nchw.detach().cpu().numpy().transpose(0, 2, 3, 1)
+
+
+# --- the attention tests: inputs made with numpy, handed to both packages
+
+
+def to_torch(a):
+    return torch.from_numpy(np.array(a))
+
+
+def rand32(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def interleaved_qkv(rng, b, h, n, m, d, dv):
+    """q/k as the diff-attention projections lay them out, (B, N, 2h, d) viewed as
+    (B, 2h, N, d) with q pre-scaled, and v (B, h, M, dv)."""
+    q = to_torch(rand32(rng, b, n, 2 * h, d) * d**-0.5).transpose(1, 2)
+    k = to_torch(rand32(rng, b, m, 2 * h, d)).transpose(1, 2)
+    return q, k, to_torch(rand32(rng, b, h, m, dv))
+
+
+def head_groups(q, k):
+    """The split groups of interleaved q/k: (q1, k1, q2, k2), head views."""
+    return q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2]
+
+
+def to_jax(*tensors):
+    """fp32 JAX copies (numpy has no bf16; callers cast back)."""
+    return [jnp.asarray(t.detach().float().numpy()) for t in tensors]
+
+
+def jit_bound(fn, **static):
+    """``fn`` with ``static`` bound, jitted whole: one XLA compile instead of one
+    dispatch per operation (the Pallas interpreter makes many)."""
+    return jax.jit(functools.partial(fn, **static))
+
+
+def assert_all_close(got, want, atol, names):
+    """Each pair within ``atol`` absolute and relative, compared in fp32."""
+    for name, a, w in zip(names, got, want):
+        np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(w, np.float32), atol=atol, rtol=atol,
+                                   err_msg=name)
