@@ -16,7 +16,7 @@ import torch.nn as nn
 
 from cenet_tpu_torch.nn import functional as F
 from cenet_tpu_torch.nn.layers import BatchNorm, Conv2d, LayerNorm, Linear, RMSNorm
-from cenet_tpu_torch.ops import router
+from cenet_tpu_torch.ops import rotary, router
 
 
 def get_attention_core(impl: str) -> Callable:
@@ -71,11 +71,18 @@ class MultiheadDiffAttn(nn.Module):
     Non-causal; the two softmax groups (even/odd interleaved heads) combine as
     A₁ − λ·A₂ with the reparameterised λ (an fp32 island), then an affine-free
     fp32 RMSNorm and ×(1 − λ_init). Optional GQA via ``num_kv_heads``.
+
+    ``forward(x, rel_pos)`` takes the JAX module's optional ``rel_pos``. With
+    ``use_rotary`` it is the (cos, sin) tables of :func:`rotary.make_rotary_tables`,
+    and interleaved rotary turns q and k before the attention. Without
+    ``use_rotary`` it is a bias added to the combined weights A₁ − λ·A₂, which
+    takes the naive full-map path. Neither adds a parameter.
     """
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int, num_kv_heads: int = None,
-                 attn_impl: str = "xla"):
+                 attn_impl: str = "xla", use_rotary: bool = False):
         super().__init__()
+        self.use_rotary = use_rotary
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.n_rep = num_heads // self.num_kv_heads
@@ -97,12 +104,16 @@ class MultiheadDiffAttn(nn.Module):
             for t in (self.lambda_q1, self.lambda_k1, self.lambda_q2, self.lambda_k2):
                 t.normal_(0.0, 0.1, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rel_pos=None) -> torch.Tensor:
         B, N, E = x.shape
         h, hkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(x).reshape(B, N, 2 * h, hd).transpose(1, 2)
         k = self.k_proj(x).reshape(B, N, 2 * hkv, hd).transpose(1, 2)
         v = self.v_proj(x).reshape(B, N, hkv, 2 * hd).transpose(1, 2)
+        if self.use_rotary and rel_pos is not None:
+            cos, sin = rel_pos
+            q = rotary.apply_rotary_emb(q, cos, sin, interleaved=True)
+            k = rotary.apply_rotary_emb(k, cos, sin, interleaved=True)
         if self.n_rep > 1:
             k = k.repeat_interleave(self.n_rep, dim=1)
             v = v.repeat_interleave(self.n_rep, dim=1)
@@ -112,12 +123,15 @@ class MultiheadDiffAttn(nn.Module):
         lambda_full = (lambda_1 - lambda_2 + self.lambda_init).to(x.dtype)
 
         qs = q * F.round_to(hd**-0.5, q.dtype)
-        if self.attn_impl == "xla":
+        bias = rel_pos is not None and not self.use_rotary
+        if self.attn_impl == "xla" or bias:
             # naive reference path: full (B, 2h, N, N) maps in the reference's
             # order of ops, with its (no-op on finite inputs) nan_to_num
             logits = torch.nan_to_num(torch.matmul(qs, k.transpose(-1, -2)))
             weights = F.softmax_fp32(logits).reshape(B, h, 2, N, N)
             weights = weights[:, :, 0] - lambda_full * weights[:, :, 1]
+            if bias:
+                weights = weights + rel_pos
             attn = torch.matmul(weights, v)
         else:
             attn = router.diff_attention_interleaved(qs, k, v, lambda_full.float())

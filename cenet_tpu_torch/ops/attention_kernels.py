@@ -29,8 +29,9 @@ Mirrors the kernels of ``cenet_tpu/ops/pallas_attention.py``:
 
 Each wrapper takes its plain twin only for tensors on the CPU. For CUDA tensors
 it launches the kernel (built at first use by :mod:`cenet_tpu_torch.ops.build`)
-or raises; it never falls back. ``LAUNCHES`` counts kernel launches by name
-(one per wrapper call, however many CUDA kernels the call starts).
+or raises; it never falls back. ``LAUNCHES`` (:mod:`cenet_tpu_torch.ops.binding`,
+shared by every op module) counts kernel launches by name (one per wrapper
+call, however many CUDA kernels the call starts).
 The public functions keep the JAX layout: q/k ``(B, 2h, N, d)`` with even heads
 group 1, v ``(B, h, M, 2d)`` for the interleaved diff kernel; q₁, q₂ ``(B, h, N, d)``,
 k₁, k₂ ``(B, h, M, d)``, v ``(B, h, M, dv)`` for the split one; ``(B, H, N|M, d)``
@@ -44,24 +45,16 @@ gradients in the inputs' dtypes, contiguous.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
-from cenet_tpu_torch.ops import build
-
-LAUNCHES = {"diff_attention_interleaved_fwd": 0, "attention_fwd": 0,
-            "diff_attention_interleaved_bwd": 0, "attention_bwd": 0,
-            "diff_attention_fwd": 0, "diff_attention_bwd": 0,
-            "diff_attention_bwd_split": 0, "attention_bwd_fused": 0}
+from cenet_tpu_torch.ops import binding
+from cenet_tpu_torch.ops.binding import LAUNCHES, reset_launches  # noqa: F401  (public names of this module)
 
 _MAX_D, _MAX_DV = 128, 128  # csrc/attention_fwd_common.cuh: MAX_D, MAX_DV
-_DTYPES = (torch.float32, torch.bfloat16)
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
+_P, _I, _L = binding.P, binding.I, binding.L
 # C signatures (csrc/*.cu): is_bf16, pointers, B, H, N, M, D, DV, 3 strides per
 # strided input, stream
 _ARGTYPES = {
@@ -74,11 +67,6 @@ _ARGTYPES = {
     "cenet_diff_attention_split_bwd_two_kernel": [_I] + [_P] * 16 + [_I] * 6 + [_L] * 18 + [_P],
     "cenet_attention_bwd_fused": [_I] + [_P] * 9 + [_I] * 6 + [_L] * 12 + [_P],
 }
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -192,11 +180,8 @@ def attention_bwd_plain(q, k, v, o, lse, do):
 
 
 def _check(name: str, tensors: dict, dtype: torch.dtype) -> None:
+    binding.check_cuda_dtype(name, tensors, dtype)
     for tname, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{name}: {tname} is on {t.device}, the other inputs on CUDA")
-        if t.dtype != dtype or dtype not in _DTYPES:
-            raise TypeError(f"{name}: {tname} is {t.dtype}; the kernel takes float32 or bfloat16, all alike")
         if t.ndim != 4:
             raise ValueError(f"{name}: {tname} must be 4-D, got {tuple(t.shape)}")
         if t.stride(-1) != 1:
@@ -230,34 +215,15 @@ def _row_stats(name: str, shape, *stats: torch.Tensor):
     return out
 
 
-def _strides(t: torch.Tensor):
-    return t.stride(0), t.stride(1), t.stride(2)
-
-
 def _unit_last(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its last dim has unit stride (the kernels read the other
     strides), else a contiguous copy."""
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _kernel(source: str, symbol: str):
-    """The C entry point ``symbol`` of ``csrc/<source>.cu``, built first if needed."""
-    fn = getattr(build.load(source), symbol)
-    fn.argtypes, fn.restype = _ARGTYPES[symbol], _I
-    return fn
+    return binding.kernel(source, symbol, _ARGTYPES[symbol])
 
-
-def _raise_on(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
-
-
-def _ptrs(*tensors: torch.Tensor):
-    return [t.data_ptr() for t in tensors]
 
 
 def diff_attention_interleaved_fwd(q, k, v, lam):
@@ -283,10 +249,10 @@ def diff_attention_interleaved_fwd(q, k, v, lam):
     lse1 = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     lse2 = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     rc = _kernel("diff_attention_fwd", "cenet_diff_attention_fwd")(
-        int(q.dtype == torch.bfloat16), *_ptrs(q, k, v, lam, o, lse1, lse2), b, h, n, m, d, dv,
-        *_strides(q), *_strides(k), *_strides(v), _stream(),
+        int(q.dtype == torch.bfloat16), *binding.ptrs(q, k, v, lam, o, lse1, lse2), b, h, n, m, d, dv,
+        *binding.strides(q), *binding.strides(k), *binding.strides(v), binding.stream(),
     )
-    _raise_on(name, rc)
+    binding.raise_on(name, rc)
     LAUNCHES[name] += 1
     return o, lse1, lse2
 
@@ -313,10 +279,11 @@ def diff_attention_fwd(q1, k1, q2, k2, v, lam):
     lse1 = torch.empty((b, h, n), dtype=torch.float32, device=q1.device)
     lse2 = torch.empty((b, h, n), dtype=torch.float32, device=q1.device)
     rc = _kernel("diff_attention_split_fwd", "cenet_diff_attention_split_fwd")(
-        int(q1.dtype == torch.bfloat16), *_ptrs(q1, k1, q2, k2, v, lam, o, lse1, lse2), b, h, n, m, d, dv,
-        *_strides(q1), *_strides(k1), *_strides(q2), *_strides(k2), *_strides(v), _stream(),
+        int(q1.dtype == torch.bfloat16), *binding.ptrs(q1, k1, q2, k2, v, lam, o, lse1, lse2), b, h, n, m, d, dv,
+        *binding.strides(q1), *binding.strides(k1), *binding.strides(q2), *binding.strides(k2), *binding.strides(v),
+        binding.stream(),
     )
-    _raise_on(name, rc)
+    binding.raise_on(name, rc)
     LAUNCHES[name] += 1
     return o, lse1, lse2
 
@@ -335,10 +302,10 @@ def attention_fwd(q, k, v):
     o = torch.empty((b, hh, n, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hh, n), dtype=torch.float32, device=q.device)
     rc = _kernel("attention_fwd", "cenet_attention_fwd")(
-        int(q.dtype == torch.bfloat16), *_ptrs(q, k, v, o, lse), b, hh, n, m, d, dv,
-        *_strides(q), *_strides(k), *_strides(v), _stream(),
+        int(q.dtype == torch.bfloat16), *binding.ptrs(q, k, v, o, lse), b, hh, n, m, d, dv,
+        *binding.strides(q), *binding.strides(k), *binding.strides(v), binding.stream(),
     )
-    _raise_on(name, rc)
+    binding.raise_on(name, rc)
     LAUNCHES[name] += 1
     return o, lse
 
@@ -368,10 +335,11 @@ def diff_attention_interleaved_bwd(q, k, v, lam, lse1, lse2, do):
     dk = torch.empty((b, h2, m, d), dtype=q.dtype, device=q.device)
     dvv = torch.empty((b, h, m, dv), dtype=q.dtype, device=q.device)
     rc = _kernel("diff_attention_bwd", "cenet_diff_attention_bwd")(
-        int(q.dtype == torch.bfloat16), *_ptrs(q, k, v, do, lam, lse1, lse2, delta1, delta2, dq, dk, dvv),
-        b, h, n, m, d, dv, *_strides(q), *_strides(k), *_strides(v), *_strides(do), _stream(),
+        int(q.dtype == torch.bfloat16), *binding.ptrs(q, k, v, do, lam, lse1, lse2, delta1, delta2, dq, dk, dvv),
+        b, h, n, m, d, dv, *binding.strides(q), *binding.strides(k), *binding.strides(v), *binding.strides(do),
+        binding.stream(),
     )
-    _raise_on(name, rc)
+    binding.raise_on(name, rc)
     LAUNCHES[name] += 1
     return dq, dk, dvv, -delta2.sum()
 
@@ -400,11 +368,12 @@ def _diff_split_bwd(name, source, symbol, fused, q1, k1, q2, k2, v, lam, lse1, l
     dvv = make((b, h, m, dv), dtype=acc, device=dev)
     rc = _kernel(source, symbol)(
         int(dtype == torch.bfloat16),
-        *_ptrs(q1, k1, q2, k2, v, do, lam, lse1, lse2, delta1, delta2, dq1, dk1, dq2, dk2, dvv),
-        b, h, n, m, d, dv, *_strides(q1), *_strides(k1), *_strides(q2), *_strides(k2), *_strides(v),
-        *_strides(do), _stream(),
+        *binding.ptrs(q1, k1, q2, k2, v, do, lam, lse1, lse2, delta1, delta2, dq1, dk1, dq2, dk2, dvv),
+        b, h, n, m, d, dv, *binding.strides(q1), *binding.strides(k1), *binding.strides(q2), *binding.strides(k2),
+        *binding.strides(v),
+        *binding.strides(do), binding.stream(),
     )
-    _raise_on(name, rc)
+    binding.raise_on(name, rc)
     LAUNCHES[name] += 1
     return dq1, dk1.to(dtype), dq2, dk2.to(dtype), dvv.to(dtype), -delta2.sum()
 
@@ -449,10 +418,10 @@ def _attention_bwd(name, source, symbol, fused, q, k, v, o, lse, do):
     dk = torch.empty((b, hh, m, d), dtype=q.dtype, device=q.device)
     dvv = torch.empty((b, hh, m, dv), dtype=q.dtype, device=q.device)
     rc = _kernel(source, symbol)(
-        int(q.dtype == torch.bfloat16), *_ptrs(q, k, v, do, lse, delta, dq, dk, dvv), b, hh, n, m, d, dv,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(do), _stream(),
+        int(q.dtype == torch.bfloat16), *binding.ptrs(q, k, v, do, lse, delta, dq, dk, dvv), b, hh, n, m, d, dv,
+        *binding.strides(q), *binding.strides(k), *binding.strides(v), *binding.strides(do), binding.stream(),
     )
-    _raise_on(name, rc)
+    binding.raise_on(name, rc)
     LAUNCHES[name] += 1
     return dq.to(q.dtype), dk, dvv
 

@@ -1,0 +1,178 @@
+"""Small-channel K×K convolution with CUDA kernels (K12), plain twins and an autograd Function.
+
+Mirrors ``tools/negative_results/smallc_conv.py``: :func:`conv_small_c` is
+``conv_small_c`` there (stride 1, NHWC x, HWIO weights ``(k, k, Cin, Cout)``,
+padding k//2). Its kernels replace ``_pallas_conv_fwd`` and
+``_pallas_conv_bwd`` (source ``csrc/smallc_conv.cu``): a direct convolution
+for the forward, and one fused launch for the backward's dx and dw (plus the
+ordered sum of the dw partials). :class:`ConvSmallCFn` is
+``_conv_small_c_pallas``'s custom_vjp.
+
+Domain: the conditions of ``conv_small_c``'s ``ok`` that define the function
+(:func:`in_domain`): stride 1, a square odd kernel of size 3–7, padding
+k//2, Cin ∈ {8, 16, 32, 64}, Cout % 8 == 0 and Cout ≤ 256, H·W ≥ 112² and
+H, W ≥ k. Dropped, since they describe TPU memory or its (8, 128) tiling:
+``vmem_need`` ≤ 80 MB, ``_row_block(h) % 8 == 0`` and W % 8 == 0. Outside the
+domain the function is ``F.conv2d``, the counterpart of ``_lax_conv`` (a
+convolution the JAX package computes outside any Pallas kernel): a shape rule,
+not a fallback. The JAX router's ``try``/``except`` is not carried over: a CUDA
+tensor in the domain reaches the kernel or raises. A CPU tensor takes the twins.
+
+Layout: the kernels read x and g and write their outputs through element
+strides on every dim, so NCHW tensors arrive as ``permute(0, 2, 3, 1)`` views
+and ``(Cout, Cin, k, k)`` weights as ``permute(2, 3, 1, 0)``; the outputs keep
+x's memory order (channels-last if x is, else NCHW memory behind an NHWC view).
+
+No configuration of either package routes this kernel;
+``chip_smoke.py::swapped_ops`` puts it at the OutHead convolutions.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as tF
+
+from cenet_tpu_torch.ops import binding
+
+_FWD_ARGTYPES = [binding.I] + [binding.P] * 3 + [binding.I] * 6 + [binding.L] * 8 + [binding.P]
+_BWD_ARGTYPES = [binding.I] + [binding.P] * 6 + [binding.I] * 6 + [binding.L] * 12 + [binding.I, binding.P]
+_CINS = (8, 16, 32, 64)
+# csrc/smallc_conv.cu: the dw blocks' tile (8 x 16 pixels), channels per block
+_DW_TH, _DW_TW, _DW_CI, _CO_T = 8, 16, 8, 32
+_TARGET_DW_BLOCKS = 4 * 132  # about four dw blocks per SM of an H100
+
+
+def in_domain(x_shape, w_shape, padding: int, stride: int = 1) -> bool:
+    """Whether ``conv_small_c`` computes on the kernels (shapes NHWC and HWIO)."""
+    _, h, wd, cin = x_shape
+    kh, kw, wcin, cout = w_shape
+    return (stride == 1 and kh == kw and kh % 2 == 1 and 3 <= kh <= 7 and padding == kh // 2 and wcin == cin
+            and cin in _CINS and cout % 8 == 0 and cout <= 256 and h * wd >= 112 * 112 and h >= kh and wd >= kh)
+
+
+def _shifts(x: torch.Tensor, k: int, p: int):
+    """((dy, dx), shift) for every tap: x shifted as the SAME conv reads it."""
+    h, wd = x.shape[1], x.shape[2]
+    xp = tF.pad(x, (0, 0, p, p, p, p))
+    return [((dy, dx), xp[:, dy:dy + h, dx:dx + wd]) for dy in range(k) for dx in range(k)]
+
+
+def conv_small_c_plain(x: torch.Tensor, w: torch.Tensor, padding: int) -> torch.Tensor:
+    """Σ over the taps of shift(x)·W[tap]: x and w (rounded to x's dtype, as the
+    JAX wrapper packs it) in fp32 products and sums, one cast to x's dtype."""
+    wf = w.to(x.dtype).float()
+    acc = None
+    for (dy, dx), xs in _shifts(x, w.shape[0], padding):
+        term = torch.matmul(xs.float(), wf[dy, dx])
+        acc = term if acc is None else acc + term
+    return acc.to(x.dtype)
+
+
+def conv_small_c_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, padding: int):
+    """``_pallas_conv_bwd``: dx = Σ over the taps of shift(g)·W'[tap] with W' the
+    weights flipped in space and in/out swapped (g and W' in x's dtype, fp32
+    sums, cast to x's dtype); dw[tap] = shift(x)ᵀ·g summed over batch and map
+    in fp32, cast to w's dtype. Returns ``(dx, dw)``."""
+    g = g.to(x.dtype)
+    wflip = w.flip(0, 1).transpose(2, 3)
+    dx = conv_small_c_plain(g, wflip, padding)
+    gf = g.float().reshape(-1, g.shape[-1])
+    k = w.shape[0]
+    dw = torch.stack([xs.float().reshape(-1, x.shape[-1]).t() @ gf for _, xs in _shifts(x, k, padding)])
+    return dx, dw.reshape(w.shape).to(w.dtype)
+
+
+def _out_like(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """An NHWC tensor of ``channels`` in x's memory order (channels-last or NCHW)."""
+    b, h, wd, _ = x.shape
+    if x.stride(3) == 1:
+        return torch.empty((b, h, wd, channels), dtype=x.dtype, device=x.device)
+    return torch.empty((b, channels, h, wd), dtype=x.dtype, device=x.device).permute(0, 2, 3, 1)
+
+
+def _check(name: str, x: torch.Tensor, w: torch.Tensor, padding: int) -> None:
+    binding.check_cuda_dtype(name, {"x": x}, x.dtype)
+    if x.ndim != 4 or w.ndim != 4 or not w.is_cuda or not in_domain(tuple(x.shape), tuple(w.shape), padding):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)} on {w.device}, padding {padding} "
+                         "are outside the kernel's domain")
+
+
+def conv_small_c_fwd(x: torch.Tensor, w: torch.Tensor, padding: int) -> torch.Tensor:
+    """The forward kernel: NHWC x (any strides), HWIO w, inside :func:`in_domain`."""
+    if x.device.type == "cpu":
+        return conv_small_c_plain(x, w, padding)
+    name = "conv_small_c_fwd"
+    _check(name, x, w, padding)
+    b, h, wd, cin = x.shape
+    k, cout = w.shape[0], w.shape[3]
+    wf = w.to(x.dtype).float().contiguous()
+    out = _out_like(x, cout)
+    rc = binding.kernel("smallc_conv", "cenet_smallc_conv_fwd", _FWD_ARGTYPES)(
+        binding.is_bf16(x), *binding.ptrs(x, wf, out), b, h, wd, cin, cout, k, *binding.strides(x, 4),
+        *binding.strides(out, 4), binding.stream())
+    binding.raise_on(name, rc)
+    binding.LAUNCHES[name] += 1
+    return out
+
+
+def bwd_parts(x_shape, cout: int) -> int:
+    """How many slices of the pixel tiles the dw blocks cut (one partial each)."""
+    b, h, wd, cin = x_shape
+    tiles = b * -(-h // _DW_TH) * -(-wd // _DW_TW)
+    per_part = -(-cout // _CO_T) * (cin // _DW_CI)
+    return max(1, min(tiles, -(-_TARGET_DW_BLOCKS // per_part)))
+
+
+def conv_small_c_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, padding: int):
+    """The fused backward kernel: ``(dx, dw)`` for upstream gradient ``g`` (NHWC,
+    any strides); dx in x's dtype and memory order, dw in w's dtype, summed in
+    fp32 without atomics (repeat runs are bit-identical)."""
+    if x.device.type == "cpu":
+        return conv_small_c_bwd_plain(x, w, g, padding)
+    name = "conv_small_c_bwd"
+    _check(name, x, w, padding)
+    g = g.to(x.dtype)
+    b, h, wd, cin = x.shape
+    k, cout = w.shape[0], w.shape[3]
+    if tuple(g.shape) != (b, h, wd, cout):
+        raise ValueError(f"{name}: g {tuple(g.shape)} does not fit x {tuple(x.shape)} and w {tuple(w.shape)}")
+    wflip = w.to(x.dtype).float().flip(0, 1).transpose(2, 3).contiguous()
+    parts = bwd_parts(tuple(x.shape), cout)
+    partial = torch.empty((parts, k, k, cin, cout), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, k, cin, cout), dtype=torch.float32, device=x.device)
+    dx = _out_like(x, cin)
+    rc = binding.kernel("smallc_conv", "cenet_smallc_conv_bwd", _BWD_ARGTYPES)(
+        binding.is_bf16(x), *binding.ptrs(x, g, wflip, dx, partial, dw), b, h, wd, cin, cout, k,
+        *binding.strides(x, 4), *binding.strides(g, 4), *binding.strides(dx, 4), parts, binding.stream())
+    binding.raise_on(name, rc)
+    binding.LAUNCHES[name] += 1
+    return dx, dw.to(w.dtype)
+
+
+class ConvSmallCFn(torch.autograd.Function):
+    """:func:`conv_small_c_fwd` with :func:`conv_small_c_bwd` as its backward
+    (``_csc_fwd``/``_csc_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, padding):
+        ctx.save_for_backward(x, w)
+        ctx.padding = padding
+        return conv_small_c_fwd(x, w, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = conv_small_c_bwd(x, w, g, ctx.padding)
+        return dx, dw, None
+
+
+def conv_small_c(x: torch.Tensor, w: torch.Tensor, padding: int) -> torch.Tensor:
+    """Stride-1 K×K convolution, NHWC x, HWIO w: the kernels inside
+    :func:`in_domain` (through :class:`ConvSmallCFn` when autograd records),
+    ``F.conv2d`` outside it."""
+    if not in_domain(tuple(x.shape), tuple(w.shape), padding):
+        y = tF.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1), padding=padding)
+        return y.permute(0, 2, 3, 1)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return ConvSmallCFn.apply(x, w, padding)
+    return conv_small_c_fwd(x, w, padding)

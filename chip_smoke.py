@@ -6,7 +6,11 @@ Needs one CUDA device and ``nvcc``; imports nothing of JAX. Two main paths
 run, volume inference and training, each on two routes of the DSEB sites'
 diff attention: the interleaved route (K1, K3) the model takes, and the
 split-group route (K5, K6) of ``router.diff_attention_core``, selected here by
-rebinding ``router.diff_attention_interleaved`` (``split_route``). Phases:
+rebinding ``router.diff_attention_interleaved`` (``split_route``). Both paths
+run a third time with K9, K11 and K12 swapped in at their own sites
+(``swapped_ops``: RMSNorm, depthwise and small-channel convolutions, which no
+configuration of either package routes), and a rotary ``MultiheadDiffAttn``
+runs K10. Phases:
 
 1. print the card's name and power limit, and build every kernel of both paths
    from ``cenet_tpu_torch/csrc`` (one ``nvcc`` per source, all in parallel);
@@ -30,12 +34,16 @@ rebinding ``router.diff_attention_interleaved`` (``split_route``). Phases:
    3c. the split route's train step: one fp32 step at batch 8 on the split
    route (K5, K6) against the interleaved route from the same weights and
    batch, then the same with K7 and K8 swapped in for K6 and K4;
+   3d. the swapped train step (inside phase 3b): fp32 at batch 2 and at
+   batch 8, each held against a float64 run of the step, and at batch 8 against
+   the unswapped step;
 4. the volume path: ``VolumeInferencer`` + ``run_inference`` in bf16 on two
    seeded synthetic CT cases (64 × 512 × 512, labels 0–8), with the kernel
    launch counts of that run;
    4b. the split route's volume path: one bf16 chunk through ``make_predict_fn``
    and one synthetic case through ``VolumeInferencer`` on both routes, with
    the split run's launch counts and slices/s;
+   4c. the same with K9, K11 and K12 swapped in (fp32 and bf16 chunks);
 5. where one chunk's time goes: the bf16 forward of 32 slices timed with CUDA
    events, and its device time by kernel from ``torch.profiler``;
 6. the training path: 64 synthetic 512² slices written as ``.npz`` with a
@@ -46,7 +54,10 @@ rebinding ``router.diff_attention_interleaved`` (``split_route``). Phases:
 7. where one training step's time goes: ``torch.profiler`` over one bf16 step
    (the card's busy time, and the host's);
    7b. ten resident bf16 steps of phase 6's trainer on the split route: step
-   ms, launch counts, and one profiled step beside phase 7's.
+   ms, launch counts, and one profiled step beside phase 7's;
+   7c. the same with K9, K11 and K12 swapped in;
+8. the rotary path: ``MultiheadDiffAttn(use_rotary=True)`` at DSEB1's width,
+   batch 8, with K10 for its interleaved rotary, against the plain module.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``; the two before it
@@ -55,6 +66,7 @@ hold the per-kernel record and the card's name and power limit.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -78,8 +90,14 @@ from cenet_tpu_torch.data.synapse import SynapseDataset  # noqa: E402
 from cenet_tpu_torch.evaluate.predict import make_predict_fn  # noqa: E402
 from cenet_tpu_torch.evaluate.volume import VolumeInferenceConfig, VolumeInferencer, run_inference  # noqa: E402
 from cenet_tpu_torch.models.cenet import build_model  # noqa: E402
+from cenet_tpu_torch.nn import layers as L  # noqa: E402
+from cenet_tpu_torch.nn.attention import MultiheadDiffAttn  # noqa: E402
 from cenet_tpu_torch.ops import attention_kernels as K  # noqa: E402
-from cenet_tpu_torch.ops import build, router  # noqa: E402
+from cenet_tpu_torch.ops import binding, build, router  # noqa: E402
+from cenet_tpu_torch.ops import depthwise as DWK  # noqa: E402
+from cenet_tpu_torch.ops import rms_norm as RMS  # noqa: E402
+from cenet_tpu_torch.ops import rotary as ROT  # noqa: E402
+from cenet_tpu_torch.ops import smallc_conv as SCK  # noqa: E402
 from cenet_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -164,31 +182,31 @@ PALLAS = "cenet_tpu/ops/pallas_attention.py"
 # ``path``: the run whose launch counts the kernels line reports
 KERNELS = {
     "diff_attention_interleaved_fwd": dict(
-        source="cenet_tpu_torch/csrc/diff_attention_fwd.cu", replaces=f"{PALLAS}:826 (_diff_fwd_pair_impl)",
+        k="K1", source="cenet_tpu_torch/csrc/diff_attention_fwd.cu", replaces=f"{PALLAS}:826 (_diff_fwd_pair_impl)",
         path="volume"),
     "attention_fwd": dict(
-        source="cenet_tpu_torch/csrc/attention_fwd.cu", replaces=f"{PALLAS}:90 (_pallas_attention_fwd_impl)",
+        k="K2", source="cenet_tpu_torch/csrc/attention_fwd.cu", replaces=f"{PALLAS}:90 (_pallas_attention_fwd_impl)",
         path="volume"),
     "diff_attention_fwd": dict(
-        source="cenet_tpu_torch/csrc/diff_attention_split_fwd.cu", replaces=f"{PALLAS}:360 (_diff_fwd_impl)",
+        k="K5", source="cenet_tpu_torch/csrc/diff_attention_split_fwd.cu", replaces=f"{PALLAS}:360 (_diff_fwd_impl)",
         path="volume-split"),
 }
 # backward kernels and the forward kernel each differentiates
 BWD_KERNELS = {
     "diff_attention_interleaved_bwd": dict(
-        source="cenet_tpu_torch/csrc/diff_attention_bwd.cu", fwd="diff_attention_interleaved_fwd",
+        k="K3", source="cenet_tpu_torch/csrc/diff_attention_bwd.cu", fwd="diff_attention_interleaved_fwd",
         replaces=f"{PALLAS}:865 (_diff_bwd_pair_impl)", path="train"),
     "attention_bwd": dict(
-        source="cenet_tpu_torch/csrc/attention_bwd.cu", fwd="attention_fwd",
+        k="K4", source="cenet_tpu_torch/csrc/attention_bwd.cu", fwd="attention_fwd",
         replaces=f"{PALLAS}:261 (_pallas_attention_bwd_impl)", path="train"),
     "diff_attention_bwd": dict(
-        source="cenet_tpu_torch/csrc/diff_attention_split_bwd.cu", fwd="diff_attention_fwd",
+        k="K6", source="cenet_tpu_torch/csrc/diff_attention_split_bwd.cu", fwd="diff_attention_fwd",
         replaces=f"{PALLAS}:545 (_diff_bwd_onekernel_impl)", path="train-split"),
     "diff_attention_bwd_split": dict(
-        source="cenet_tpu_torch/csrc/diff_attention_split_bwd_two_kernel.cu", fwd="diff_attention_fwd",
+        k="K7", source="cenet_tpu_torch/csrc/diff_attention_split_bwd_two_kernel.cu", fwd="diff_attention_fwd",
         replaces=f"{PALLAS}:609 (_diff_bwd_impl)", path="train-split (swapped)"),
     "attention_bwd_fused": dict(
-        source="cenet_tpu_torch/csrc/attention_bwd_fused.cu", fwd="attention_fwd",
+        k="K8", source="cenet_tpu_torch/csrc/attention_bwd_fused.cu", fwd="attention_fwd",
         replaces=f"{PALLAS}:212 (_pallas_attention_bwd_fused_impl)", path="train-split (swapped)"),
 }
 SPLIT_BWD = ("diff_attention_bwd", "diff_attention_bwd_split")
@@ -757,7 +775,9 @@ def phase_train_parity():
         check(vs_cpu[n] <= lim_cpu, f"train parity: gradient of {n} off the CPU's by {vs_cpu[n]} (limit {lim_cpu})")
         check(native_vs_cpu[n] <= TOL_NATIVE_REL,
               f"train parity: with native convolutions the gradient of {n} is off the CPU's by {native_vs_cpu[n]}")
-    del cpu, witness, grads, plain_grads, native_grads, cpu_grads, w_grads
+    del cpu, witness, grads, plain_grads, native_grads, cpu_grads
+    swapped_launches = phase_swapped_train_parity(card, x.to(DEV), y.to(DEV), float(w_loss), w_grads, names, live)
+    del w_grads
 
     # the training batch: kernels against twins on the card
     x, y = labelled_slices(11, TRAIN_B, 224)
@@ -783,7 +803,7 @@ def phase_train_parity():
               f"train parity, batch {TRAIN_B}: the kernels move the gradient of {n} by {own[n]} of its max (limit {lim})")
     del card, grads, plain_grads, native_grads
     torch.cuda.empty_cache()
-    return live
+    return live, swapped_launches
 
 
 def phase_split_train_parity(live):
@@ -1098,47 +1118,573 @@ def phase_split_train(trainer, images, labels, steps=10):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# K9–K12: the kernels no configuration routes, swapped in at their own sites
+# ---------------------------------------------------------------------------
+
+# launches of the swapped ops per forward of CENet-b2: K9 at the subln of each
+# DSEB's MultiheadDiffAttn (3); K11 at every depthwise 3×3 stride-1 conv with
+# padding = dilation (the 16 PVT DWConvs of b2's 3+4+6+3 blocks, the 4 CFAM
+# CAggMlp.dwconvs, the 12 dilated SepConvBN depthwise convs of the 4
+# MultiOrderDWConvs, the 3 EUCB up_dwc of up1–up3: 35); K12 at the 4 OutHead
+# convs inside its domain (rb.0.conv2, up.1, out.0.conv1, out.0.conv2)
+SWAPPED_PER_FORWARD = {"rms_norm": 3, "depthwise_fwd": 35, "conv_small_c_fwd": 4}
+VOLUME_PER_CHUNK["swapped"] = {**VOLUME_PER_CHUNK["interleaved"], **SWAPPED_PER_FORWARD}
+# per train step: the backward adds one K11 forward (dx) and one dw per
+# depthwise site and one fused K12 backward per K12 site; K9's backward is plain
+TRAIN_PER_STEP["swapped"] = {**TRAIN_PER_STEP["interleaved"], **SWAPPED_PER_FORWARD, "depthwise_fwd": 70,
+                             "depthwise_dw": 35, "conv_small_c_bwd": 4}
+ROTARY_PER_FORWARD = {"diff_attention_interleaved_fwd": 1, "rms_norm": 1, "rotary": 2}
+NEG = "tools/negative_results"
+SWAP_KERNELS = {
+    "rms_norm": dict(k="K9", source="cenet_tpu_torch/csrc/rms_norm.cu",
+                     replaces="cenet_tpu/ops/rms_norm.py:47 (_rms_fwd_impl)", path="volume-swapped"),
+    "rotary": dict(k="K10", source="cenet_tpu_torch/csrc/rotary.cu",
+                   replaces="cenet_tpu/ops/rotary.py:62 (apply_rotary_emb_pallas)", path="rotary"),
+    "depthwise_fwd": dict(k="K11", source="cenet_tpu_torch/csrc/depthwise_conv.cu",
+                          replaces=f"{NEG}/depthwise.py:87 (_pallas_depthwise_fwd)", path="volume-swapped"),
+    "depthwise_dw": dict(k="K11", source="cenet_tpu_torch/csrc/depthwise_conv.cu",
+                         replaces=f"{NEG}/depthwise.py:105 (_pallas_depthwise_dw)", path="train-swapped"),
+    "conv_small_c_fwd": dict(k="K12", source="cenet_tpu_torch/csrc/smallc_conv.cu",
+                             replaces=f"{NEG}/smallc_conv.py:200 (_pallas_conv_fwd)", path="volume-swapped"),
+    "conv_small_c_bwd": dict(k="K12", source="cenet_tpu_torch/csrc/smallc_conv.cu",
+                             replaces=f"{NEG}/smallc_conv.py:224 (_pallas_conv_bwd)", path="train-swapped"),
+}
+
+
+def _records(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def is_depthwise_site(conv) -> bool:
+    """A depthwise 3×3 stride-1 conv whose padding equals its dilation (K11's function)."""
+    c = conv.in_channels
+    return (conv.groups == c == conv.out_channels and conv.kernel_size == (3, 3) and conv.stride == (1, 1)
+            and conv.padding == conv.dilation and conv.dilation[0] == conv.dilation[1]
+            and conv.padding_mode == "zeros")
+
+
+def smallc_site(conv, x):
+    """(NHWC shape, HWIO shape, padding) when the conv on x is inside K12's domain, else None."""
+    if conv.groups != 1 or conv.dilation != (1, 1) or conv.padding_mode != "zeros" or conv.stride != (1, 1):
+        return None
+    if conv.padding[0] != conv.padding[1] or conv.kernel_size[0] != conv.kernel_size[1]:
+        return None
+    x_shape = (x.shape[0], x.shape[2], x.shape[3], x.shape[1])
+    w_shape = (*conv.kernel_size, conv.in_channels, conv.out_channels)
+    return (x_shape, w_shape, conv.padding[0]) if SCK.in_domain(x_shape, w_shape, conv.padding[0]) else None
+
+
+@contextlib.contextmanager
+def swapped_ops(log=None):
+    """While open, CUDA tensors take K9–K12 at their own sites, as the JAX
+    package would if it routed them (it routes none): ``RMSNorm.forward`` →
+    ``rms_norm`` (K9; ``RMSNormFn`` under autograd), the depthwise 3×3 convs →
+    ``depthwise_conv3x3`` (K11), the convs inside K12's domain → ``conv_small_c``
+    (K12), each plus its bias; every other conv keeps cuDNN. Interleaved rotary
+    (``ops.rotary.apply_rotary_emb``) goes through K10: de-interleave the head
+    dim, K10, re-interleave. ``log``: a list that gets one entry per swapped
+    call (kernel, shapes). The package itself has no switch."""
+    rms_forward, conv_forward, plain_rotary = L.RMSNorm.forward, L.Conv2d.forward, ROT.apply_rotary_emb
+
+    def rms(self, x):
+        if not x.is_cuda:
+            return rms_forward(self, x)
+        if log is not None:
+            log.append(("rms_norm", tuple(x.shape)))
+        if _records(x, self.weight):
+            return RMS.RMSNormFn.apply(x, self.weight, self.eps)
+        return RMS.rms_norm(x, self.weight, self.eps)
+
+    def conv(self, x):
+        if not x.is_cuda:
+            return conv_forward(self, x)
+        w = self.weight.to(x.dtype).permute(2, 3, 1, 0)
+        xh = x.permute(0, 2, 3, 1)
+        site = smallc_site(self, x)
+        if is_depthwise_site(self):
+            if log is not None:
+                log.append(("depthwise", tuple(xh.shape), self.dilation[0], x.stride(1) == 1))
+            y = DWK.depthwise_conv3x3(xh, w, self.dilation[0])
+        elif site is not None:
+            if log is not None:
+                log.append(("smallc", *site, x.stride(1) == 1))
+            y = SCK.conv_small_c(xh, w, site[2])
+        else:
+            return conv_forward(self, x)
+        y = y.permute(0, 3, 1, 2)
+        return y if self.bias is None else y + self.bias.to(x.dtype).view(1, -1, 1, 1)
+
+    def rotary(x, cos, sin, interleaved=True):
+        if x.is_cuda and interleaved and 2 * cos.shape[-1] == x.shape[-1]:
+            return ROT.reinterleave(ROT.apply_rotary_emb_kernel(ROT.deinterleave(x), cos, sin))
+        return plain_rotary(x, cos, sin, interleaved)
+
+    L.RMSNorm.forward, L.Conv2d.forward, ROT.apply_rotary_emb = rms, conv, rotary
+    try:
+        yield
+    finally:
+        L.RMSNorm.forward, L.Conv2d.forward, ROT.apply_rotary_emb = rms_forward, conv_forward, plain_rotary
+
+
+def swapped_sites():
+    """Every swapped call of one bf16 forward of CENet-b2 (Synapse preset) at
+    batch 2: {(kernel, shapes at batch 2, …): calls per forward}."""
+    model = build_model(get_preset("synapse"), device=DEV, seed=0)
+    log = []
+    with torch.inference_mode(), swapped_ops(log):
+        model(torch.zeros(2, 1, 224, 224, device=DEV, dtype=torch.bfloat16))
+    del model
+    counts = collections.Counter(log)
+    got = {k: sum(n for site, n in counts.items() if site[0] == kind)
+           for k, kind in (("rms_norm", "rms_norm"), ("depthwise_fwd", "depthwise"), ("conv_small_c_fwd", "smallc"))}
+    check(got == SWAPPED_PER_FORWARD, f"swapped sites per forward {got}, expected {SWAPPED_PER_FORWARD}")
+    return counts
+
+
+def with_batch(shape, b):
+    return (b, *shape[1:])
+
+
+def nhwc_input(shape, channels_last, dtype, gen, scale=1.0):
+    """An NHWC tensor of ``shape`` laid out as the model hands it over: channels-last
+    memory, or the permuted view of an NCHW tensor."""
+    b, h, w, c = shape
+    if channels_last:
+        return (scale * torch.randn(b, h, w, c, generator=gen, device=DEV)).to(dtype)
+    return (scale * torch.randn(b, c, h, w, generator=gen, device=DEV)).to(dtype).permute(0, 2, 3, 1)
+
+
+def close_check(got, want, dtype, where, fp32_tol=TOL_FP32):
+    """``got`` against the fp32 ``want``: fp32 within ``fp32_tol``·max |want| and
+    1e-5 in norm (order of summation and the card's fused multiply-adds);
+    bf16 outputs within two bf16 half-ulps of max |want| and 2·2^-8 in norm
+    (rounding the output, and values that kernel and twin round to different
+    sides). Returns the readings."""
+    e, m, ne = amax(got.float() - want.float()), amax(want), rel_norm(got, want)
+    lim, nlim = (fp32_tol * m, TOL_FP32_NORM) if dtype == torch.float32 else (2 * BF16_REL * m, 2 * BF16_REL)
+    check(got.shape == want.shape and e <= lim and ne <= nlim,
+          f"{where}: err {e} (limit {lim}), norm err {ne} (limit {nlim}), "
+          f"shapes {tuple(got.shape)} {tuple(want.shape)}")
+    return {"err": e, "limit": lim, "share": e / lim, "norm_err": ne, "max_abs": m}
+
+
+def elem_bound(flops, nbytes):
+    """(ms for the operations, ms for the bytes) as ``bound`` computes them."""
+    return flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def swap_site_rows(counts):
+    """K9, K11 and K12 against their twins at every site shape of the swapped
+    paths: batch 2 and the path's own batch (32-slice chunk for the forwards,
+    training batch 8 for the backward kernels), fp32 and bf16; times (bf16, at
+    the path's batch) of kernel, twin and library call, and the bound. Yields
+    one row per (kernel, site shape), with its calls per forward."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    f = torch.nn.functional
+    for site, calls in sorted(counts.items(), key=str):
+        kind = site[0]
+        if kind == "rms_norm":
+            shape = site[1]
+            row = {"kernel": "rms_norm", "site": shape, "calls_per_forward": calls}
+            for b, label in ((2, "b2"), (CHUNK, "chunk")):
+                for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                    x = (3 * torch.randn(with_batch(shape, b), generator=gen, device=DEV)).to(dtype)
+                    r = close_check(RMS.rms_norm(x), RMS.rms_norm_plain(x.float()), dtype,
+                                    f"rms_norm {shape} {label} {dname}", fp32_tol=1e-5)
+                    row.update({f"{label}_{dname}_{k}": v for k, v in r.items()})
+            w = torch.randn(shape[-1], generator=gen, device=DEV)
+            row.update({f"weight_{k}": v for k, v in close_check(RMS.rms_norm(x, w), RMS.rms_norm_plain(x.float(), w),
+                                                                  x.dtype, f"rms_norm {shape} with weight").items()})
+            row["ms"] = time_ms(lambda: RMS.rms_norm(x))
+            row["plain_ms"] = time_ms(lambda: RMS.rms_norm_plain(x))
+            row["library_ms"] = time_ms(lambda: f.rms_norm(x, (x.shape[-1],), None, 1e-5))
+            row["ops_ms"], row["bytes_ms"] = elem_bound(3 * x.numel(), 2 * 2 * x.numel())
+            yield row
+        elif kind == "depthwise":
+            _, shape, dil, cl = site
+            c = shape[-1]
+            row = {"kernel": "depthwise_fwd", "site": shape, "dilation": dil, "channels_last": cl,
+                   "calls_per_forward": calls}
+            drow = {"kernel": "depthwise_dw", "site": shape, "dilation": dil, "channels_last": cl,
+                    "calls_per_forward": calls}
+            w = torch.randn(3, 3, 1, c, generator=gen, device=DEV)
+            for b, label in ((2, "b2"), (CHUNK, "chunk"), (TRAIN_B, f"b{TRAIN_B}")):
+                for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                    x = nhwc_input(with_batch(shape, b), cl, dtype, gen)
+                    where = f"{shape} dilation {dil} {label} {dname}"
+                    if label != f"b{TRAIN_B}":
+                        r = close_check(DWK.depthwise_fwd(x, w, dil), DWK.depthwise_fwd_plain(x.float(), w, dil), dtype,
+                                        f"depthwise_fwd {where}")
+                        row.update({f"{label}_{dname}_{k}": v for k, v in r.items()})
+                    if label != "chunk":
+                        g = nhwc_input(with_batch(shape, b), False, dtype, gen)
+                        dw = DWK.depthwise_dw(x, g, dil)
+                        r = close_check(dw, DWK.depthwise_dw_plain(x.float(), g.float(), dil), torch.float32,
+                                        f"depthwise_dw {where}")
+                        drow.update({f"{label}_{dname}_{k}": v for k, v in r.items()})
+                        drow["repeat_bit_identical"] = bool(torch.equal(dw, DWK.depthwise_dw(x, g, dil)))
+                        check(drow["repeat_bit_identical"], f"depthwise_dw {where}: repeat runs differ")
+            x = nhwc_input(with_batch(shape, CHUNK), cl, torch.bfloat16, gen)
+            xn, wn = x.permute(0, 3, 1, 2), w.to(torch.bfloat16).permute(3, 2, 0, 1)
+            row["ms"] = time_ms(lambda: DWK.depthwise_fwd(x, w, dil))
+            row["plain_ms"] = time_ms(lambda: DWK.depthwise_fwd_plain(x, w, dil), reps=2)
+            row["library_ms"] = time_ms(lambda: f.conv2d(xn, wn, padding=dil, dilation=dil, groups=c))
+            row["ops_ms"], row["bytes_ms"] = elem_bound(18 * x.numel(), 2 * 2 * x.numel() + 4 * 9 * c)
+            yield row
+            x = nhwc_input(with_batch(shape, TRAIN_B), cl, torch.bfloat16, gen)
+            g = nhwc_input(with_batch(shape, TRAIN_B), False, torch.bfloat16, gen)
+            xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            drow["ms"] = time_ms(lambda: DWK.depthwise_dw(x, g, dil))
+            drow["plain_ms"] = time_ms(lambda: DWK.depthwise_dw_plain(x, g, dil), reps=2)
+            drow["library_ms"] = time_ms(lambda: torch.ops.aten.convolution_backward(
+                gn, xn, wn, None, [1, 1], [dil, dil], [dil, dil], False, [0, 0], c, [False, True, False]))
+            drow["ops_ms"], drow["bytes_ms"] = elem_bound(18 * x.numel(), 2 * 2 * x.numel() + 4 * 9 * c)
+            yield drow
+        elif kind == "smallc":
+            _, shape, wshape, pad, cl = site
+            k, cin, cout = wshape[0], wshape[2], wshape[3]
+            row = {"kernel": "conv_small_c_fwd", "site": shape, "w": wshape, "channels_last": cl,
+                   "calls_per_forward": calls}
+            brow = {"kernel": "conv_small_c_bwd", "site": shape, "w": wshape, "channels_last": cl,
+                    "calls_per_forward": calls}
+            w = 0.1 * torch.randn(wshape, generator=gen, device=DEV)
+            for b, label in ((2, "b2"), (CHUNK, "chunk"), (TRAIN_B, f"b{TRAIN_B}")):
+                for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                    x = nhwc_input(with_batch(shape, b), cl, dtype, gen)
+                    wr = w.to(dtype).float()  # the weights as the kernel rounds them
+                    where = f"{shape} w {wshape} {label} {dname}"
+                    if label != f"b{TRAIN_B}":
+                        r = close_check(SCK.conv_small_c_fwd(x, w, pad), SCK.conv_small_c_plain(x.float(), wr, pad),
+                                        dtype, f"conv_small_c_fwd {where}")
+                        row.update({f"{label}_{dname}_{k_}": v for k_, v in r.items()})
+                    if label != "chunk":
+                        g = nhwc_input((b, shape[1], shape[2], cout), False, dtype, gen)
+                        dx, dw = SCK.conv_small_c_bwd(x, w, g, pad)
+                        want_dx, want_dw = SCK.conv_small_c_bwd_plain(x.float(), wr, g.float(), pad)
+                        for name, got, want, dt in (("dx", dx, want_dx, dtype), ("dw", dw, want_dw, torch.float32)):
+                            r = close_check(got, want, dt, f"conv_small_c_bwd {name} {where}")
+                            brow.update({f"{label}_{dname}_{name}_{k_}": v for k_, v in r.items()})
+                        brow["repeat_bit_identical"] = bool(torch.equal(dw, SCK.conv_small_c_bwd(x, w, g, pad)[1]))
+                        check(brow["repeat_bit_identical"], f"conv_small_c_bwd {where}: repeat runs differ")
+            del x, g, dx, dw, want_dx, want_dw
+            x = nhwc_input(with_batch(shape, CHUNK), cl, torch.bfloat16, gen)
+            xn, wn = x.permute(0, 3, 1, 2), w.to(torch.bfloat16).permute(3, 2, 0, 1)
+            row["ms"] = time_ms(lambda: SCK.conv_small_c_fwd(x, w, pad))
+            row["plain_ms"] = time_ms(lambda: SCK.conv_small_c_plain(x, w, pad), reps=2)
+            row["library_ms"] = time_ms(lambda: f.conv2d(xn, wn, padding=pad))
+            pix = CHUNK * shape[1] * shape[2]
+            row["ops_ms"], row["bytes_ms"] = elem_bound(2 * k * k * cin * cout * pix,
+                                                        2 * pix * (cin + cout) + 4 * w.numel())
+            yield row
+            x = nhwc_input(with_batch(shape, TRAIN_B), cl, torch.bfloat16, gen)
+            g = nhwc_input((TRAIN_B, shape[1], shape[2], cout), False, torch.bfloat16, gen)
+            xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            brow["ms"] = time_ms(lambda: SCK.conv_small_c_bwd(x, w, g, pad))
+            brow["plain_ms"] = time_ms(lambda: SCK.conv_small_c_bwd_plain(x, w, g, pad), reps=2)
+            brow["library_ms"] = time_ms(lambda: torch.ops.aten.convolution_backward(
+                gn, xn, wn, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1, [True, True, False]))
+            pix = TRAIN_B * shape[1] * shape[2]
+            brow["ops_ms"], brow["bytes_ms"] = elem_bound(4 * k * k * cin * cout * pix,
+                                                          2 * pix * (2 * cin + cout) + 2 * 4 * w.numel())
+            yield brow
+        torch.cuda.empty_cache()
+
+
+def phase_swap_kernels():
+    """K9, K11 and K12 against their twins at every site shape (``swap_site_rows``).
+    Returns the rows (each with its calls per forward) and each kernel's
+    largest bf16 error against its twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counts = swapped_sites()
+    rows = []
+    for row in swap_site_rows(counts):
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        row["bound_by"] = bound_by(row["ops_ms"], row["bytes_ms"])
+        row["roofline_share"] = row["bound_ms"] / row["ms"]
+        emit({"phase": "swap_kernels", **{k: (list(v) if isinstance(v, tuple) else v) for k, v in row.items()}})
+        rows.append(row)
+    errs = {}
+    for row in rows:
+        e = max(v for k, v in row.items() if k.endswith("bf16_err") or k.endswith("bf16_dx_err")
+                or k.endswith("bf16_dw_err"))
+        errs[row["kernel"]] = max(errs.get(row["kernel"], 0.0), e)
+    binding.reset_launches()
+    return rows, errs
+
+
+def phase_swapped_volume():
+    """The volume path with K9, K11 and K12 swapped in: one 32-slice chunk
+    through ``make_predict_fn`` against the unswapped chunk, in fp32 (TF32 off;
+    probabilities within phase 3's 1e-3) and in bf16 (the swap's rounding
+    points differ from cuDNN's: the bias is added after the kernel's rounding,
+    and sums run in another order; so the swapped bf16 chunk is held to lie no
+    further from the fp32 chunk than twice the unswapped bf16 chunk does),
+    argmax agreement ≥ 99.9% in both, launch counts checked exactly; then a synthetic
+    64-slice case through ``VolumeInferencer`` in bf16 in turns (plain,
+    swapped, swapped, plain): labels agreeing on ≥ 99.9% of voxels, slices/s,
+    and the launch counts of one swapped run. Returns those counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(get_preset("synapse"), device=DEV, seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    x = torch.randn(CHUNK, 1, 224, 224, generator=gen, device=DEV)
+    readings, plain = {}, {}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        predict = make_predict_fn(model, dtype)
+        plain[dname] = predict(x)
+        binding.reset_launches()
+        with swapped_ops():
+            swapped = predict(x)
+        torch.cuda.synchronize()
+        launched = dict(binding.LAUNCHES)
+        check_launches(launched, VOLUME_PER_CHUNK["swapped"], 1, f"swapped chunk ({dname})")
+        readings[dname] = {"chunk_max_abs_prob_diff": amax(swapped - plain[dname]),
+                           "chunk_argmax_agree": float((swapped.argmax(1) == plain[dname].argmax(1)).float().mean()),
+                           "chunk_max_abs_prob_diff_vs_fp32": amax(swapped - plain["fp32"]), "launches": launched}
+    bf16_drift = amax(plain["bf16"] - plain["fp32"])
+    del plain, swapped
+    predict = make_predict_fn(model, torch.bfloat16)
+    inf = VolumeInferencer(predict, VolumeInferenceConfig(img_size=224, chunk=CHUNK, num_classes=9), device=DEV)
+    image = synthetic_case(1)["image"]
+    chunks = -(-image.shape[0] // CHUNK)
+    inf.predict_volume(image[:CHUNK])
+    with swapped_ops():
+        inf.predict_volume(image[:CHUNK])  # warm-up of both
+    seconds, labels = {"plain": [], "swapped": []}, {}
+    for run in ("plain", "swapped", "swapped", "plain"):
+        with swapped_ops() if run == "swapped" else contextlib.nullcontext():
+            binding.reset_launches()
+            t0 = time.perf_counter()
+            labels[run] = inf.predict_volume(image)
+            seconds[run].append(time.perf_counter() - t0)
+            launched = dict(binding.LAUNCHES)
+        check_launches(launched, VOLUME_PER_CHUNK["swapped" if run == "swapped" else "interleaved"], chunks,
+                       f"swapped volume ({run})")
+        if run == "swapped":
+            case_launches = launched
+    label_agree = float((labels["swapped"] == labels["plain"]).mean())
+    emit({"phase": "swapped_volume", **{f"{d}_{k}": v for d, r in readings.items() for k, v in r.items()},
+          "bf16_vs_fp32_max_abs_prob_diff_unswapped": bf16_drift,
+          "case_label_agree": label_agree, "slices": int(image.shape[0]), "chunks": chunks,
+          "slices_per_s": {r: [image.shape[0] / t for t in ts] for r, ts in seconds.items()},
+          "launches_swapped_case": case_launches})
+    r32, r16 = readings["fp32"], readings["bf16"]
+    check(r32["chunk_max_abs_prob_diff"] <= 1e-3 and r32["chunk_argmax_agree"] >= 0.999,
+          f"swapped volume: fp32 chunk probabilities off by {r32['chunk_max_abs_prob_diff']}, "
+          f"argmax agreement {r32['chunk_argmax_agree']}")
+    check(r16["chunk_max_abs_prob_diff_vs_fp32"] <= 2 * bf16_drift and r16["chunk_argmax_agree"] >= 0.999,
+          f"swapped volume: bf16 chunk probabilities {r16['chunk_max_abs_prob_diff_vs_fp32']} from fp32 (the "
+          f"unswapped bf16 chunk: {bf16_drift}), argmax agreement {r16['chunk_argmax_agree']}")
+    check(label_agree >= 0.999, f"swapped volume: labels agree on {label_agree} of the case")
+    del model
+    torch.cuda.empty_cache()
+    return case_launches
+
+
+def phase_swapped_train_parity(card, x2, y2, w_loss, w_grads, names, live):
+    """The fp32 train step (TF32 off, drop-path off) with K9, K11 and K12
+    swapped in, held against float64 runs of the same step on the CPU (the
+    fp32 step is ill-conditioned, ROADMAP §3): at batch 2 against phase 3b's
+    witness ``w_grads``, at the training batch of 8 against a witness of its
+    own, beside the unswapped step; the loss within ``TOL_LOSS``, the median
+    within ``TOL_MEDIAN_VS_F64``, the picked gradients within
+    ``PARITY_GRADS``' float64 column. At batch 8 the swapped step is also held
+    to the unswapped one in its loss and in the median (``TOL_B8_MEDIAN``);
+    the picked gradients' differences are reported. Launch counts per step
+    checked exactly. Returns the batch-8 run's counts."""
+    def rel_errs(gs, ws):
+        return {n: rel_max(g, w) for n, g, w in zip(names, gs, ws) if n in live}
+
+    def hold_to_float64(grads, loss, want_loss, want_grads, where):
+        vs_f64 = rel_errs(grads, want_grads)
+        median = float(np.median(list(vs_f64.values())))
+        check(abs(float(loss) - want_loss) <= TOL_LOSS, f"{where}: loss {float(loss)} vs float64 {want_loss}")
+        check(median <= TOL_MEDIAN_VS_F64, f"{where}: gradients off float64 by a median {median}")
+        for n, (lim, _, _) in PARITY_GRADS.items():
+            check(vs_f64[n] <= lim, f"{where}: gradient of {n} off float64 by {vs_f64[n]} (limit {lim})")
+        return vs_f64
+
+    binding.reset_launches()
+    with swapped_ops():
+        loss, grads = card.loss_and_grads(x2, y2)
+    torch.cuda.synchronize()
+    launched = dict(binding.LAUNCHES)
+    vs_f64 = rel_errs(grads, w_grads)
+    emit({"phase": "swapped_train_parity", "batch": 2, "loss": float(loss), "grad_rel_err_vs_float64": summary(vs_f64),
+          "launches": launched})
+    check_launches(launched, TRAIN_PER_STEP["swapped"], 1, "swapped train parity, batch 2")
+    hold_to_float64(grads, loss, w_loss, w_grads, "swapped train parity, batch 2")
+    del grads
+    x, y = labelled_slices(11, TRAIN_B, 224)
+    loss, grads = card.loss_and_grads(x.to(DEV), y.to(DEV))
+    binding.reset_launches()
+    with swapped_ops():
+        s_loss, s_grads = card.loss_and_grads(x.to(DEV), y.to(DEV))
+    torch.cuda.synchronize()
+    launched = dict(binding.LAUNCHES)
+    witness = Trainer(parity_config(), 1, device="cpu", model_seed=0)
+    witness.model.double().train()
+    witness.compute_dtype = torch.float64
+    t0 = time.perf_counter()
+    with float64_stays():
+        w8_loss, w8_grads = witness.loss_and_grads(x, y)
+    witness_s = time.perf_counter() - t0
+    del witness
+    errs = rel_errs(s_grads, grads)
+    swapped_f64, plain_f64 = rel_errs(s_grads, w8_grads), rel_errs(grads, w8_grads)
+    emit({"phase": "swapped_train_parity", "batch": TRAIN_B, "loss": float(s_loss), "loss_unswapped": float(loss),
+          "loss_float64": float(w8_loss), "grad_rel_err_vs_unswapped": summary(errs),
+          "grad_rel_err_vs_float64": {"swapped": summary(swapped_f64), "unswapped": summary(plain_f64)},
+          "float64_s": witness_s, "launches": launched})
+    check_launches(launched, TRAIN_PER_STEP["swapped"], 1, f"swapped train parity, batch {TRAIN_B}")
+    for run, (g, l_) in {"swapped": (s_grads, s_loss), "unswapped": (grads, loss)}.items():
+        hold_to_float64(g, l_, float(w8_loss), w8_grads, f"swapped train parity, batch {TRAIN_B} ({run})")
+    check(abs(float(s_loss) - float(loss)) <= TOL_LOSS,
+          f"swapped train parity, batch {TRAIN_B}: loss {float(s_loss)} vs unswapped {float(loss)}")
+    median = float(np.median(list(errs.values())))
+    check(median <= TOL_B8_MEDIAN, f"swapped train parity, batch {TRAIN_B}: gradients off by a median {median}")
+    del grads, s_grads, w8_grads
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_swapped_train(trainer, images, labels, steps=10):
+    """Phase 6's bf16 trainer on its resident batch with K9, K11 and K12 swapped
+    in: step ms over ``steps`` steps (CUDA events), every loss finite, launch
+    counts checked exactly, and one profiled step beside phase 7's."""
+    with swapped_ops():
+        trainer.train_step(images, labels)  # warm-up
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        binding.reset_launches()
+        losses = []
+        start.record()
+        for _ in range(steps):
+            losses.append(trainer.train_step(images, labels))
+        end.record()
+        torch.cuda.synchronize()
+        launched = dict(binding.LAUNCHES)
+        prof = profile_step(trainer, images, labels)
+    loss_values = torch.stack(losses).cpu().tolist()
+    emit({"phase": "swapped_train", "steps": steps, "resident_step_ms": start.elapsed_time(end) / steps,
+          "losses": loss_values, "launches": launched, "profile": prof})
+    check(all(np.isfinite(loss_values)), f"a swapped training loss is not finite: {loss_values}")
+    check_launches(launched, TRAIN_PER_STEP["swapped"], steps, f"swapped train, {steps} steps")
+    return launched
+
+
+def phase_rotary(n=3136):
+    """``MultiheadDiffAttn(use_rotary=True)`` at DSEB1's width (128 channels, 8
+    heads of head dim 8, 3136 tokens), batch 8, in inference, with rel_pos =
+    ``make_rotary_tables(3136, 8)``: the swapped module (K10 for the
+    interleaved rotary of q and k) against the plain one, fp32 within 1e-6 of
+    max |out| and bf16 within 2·2^-8 (K10 rounds every product and sum in x's
+    dtype, as the plain rotary does, so both read 0 unless the card's K1 or K9
+    differ between the runs); the K10 composition on the module's own q and k
+    against the plain rotary; K10 timed on q against its twin. Returns the bf16 run's launch counts and the
+    kernel's row."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    e, heads = 128, 8
+    hd = e // heads // 2
+    torch.manual_seed(12)
+    module = MultiheadDiffAttn(e, depth=2, num_heads=heads, attn_impl="pallas", use_rotary=True).to(DEV).eval()
+    module.reset_parameters(torch.Generator(device=DEV).manual_seed(12))
+    cos, sin = ROT.make_rotary_tables(n, hd, device=DEV)
+    x = torch.randn(TRAIN_B, n, e, generator=torch.Generator(device=DEV).manual_seed(13), device=DEV)
+    row = {"kernel": "rotary", "site": [TRAIN_B, 2 * heads, n, hd]}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        xd = x.to(dtype)
+        with torch.inference_mode():
+            plain = module(xd, (cos, sin))
+            binding.reset_launches()
+            with swapped_ops():
+                swapped = module(xd, (cos, sin))
+            torch.cuda.synchronize()
+            launched = dict(binding.LAUNCHES)
+            q = module.q_proj(xd).reshape(TRAIN_B, n, 2 * heads, hd).transpose(1, 2)
+            k = module.k_proj(xd).reshape(TRAIN_B, n, 2 * heads, hd).transpose(1, 2)
+            with swapped_ops():
+                qk = [ROT.apply_rotary_emb(t, cos, sin, interleaved=True) for t in (q, k)]
+            qk_plain = [ROT.apply_rotary_emb(t, cos, sin, interleaved=True) for t in (q, k)]
+        check_launches(launched, ROTARY_PER_FORWARD, 1, f"rotary path ({dname})")
+        tol = 1e-6 if dtype == torch.float32 else 2 * BF16_REL
+        err, lim = amax(swapped.float() - plain.float()), tol * amax(plain)
+        check(err <= lim, f"rotary path ({dname}): swapped module off the plain one by {err} (limit {lim})")
+        row.update({f"{dname}_module_err": err, f"{dname}_module_limit": lim, f"{dname}_launches": launched})
+        for name, got, want in zip("qk", qk, qk_plain):
+            row.update({f"{dname}_{name}_{kk}": v for kk, v in close_check(got, want, dtype, f"rotary {name} {dname}",
+                                                                          fp32_tol=1e-6).items()})
+    qd = ROT.deinterleave(q)
+    row["ms"] = time_ms(lambda: ROT.apply_rotary_emb_kernel(qd, cos, sin))
+    row["plain_ms"] = time_ms(lambda: ROT.apply_rotary_emb_kernel_plain(qd, cos, sin))
+    row["library_ms"] = None
+    row["ops_ms"], row["bytes_ms"] = elem_bound(3 * qd.numel(), 2 * 2 * qd.numel() + 2 * 2 * cos.numel())
+    row["bound_ms"], row["bound_by"] = max(row["ops_ms"], row["bytes_ms"]), bound_by(row["ops_ms"], row["bytes_ms"])
+    row["roofline_share"] = row["bound_ms"] / row["ms"]
+    row["max_abs_err"] = max(row["bf16_q_err"], row["bf16_k_err"])
+    emit({"phase": "rotary", **row})
+    del module
+    torch.cuda.empty_cache()
+    return launched, row
+
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    sources = [os.path.splitext(os.path.basename(spec["source"]))[0] for spec in (*KERNELS.values(), *BWD_KERNELS.values())]
+    specs = (*KERNELS.values(), *BWD_KERNELS.values(), *SWAP_KERNELS.values())
+    sources = sorted({os.path.splitext(os.path.basename(spec["source"]))[0] for spec in specs})
     build.build(sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sources, "dir": str(build._build_dir())})
 
     sites, errs = phase_kernels()
     bwd_sites, bwd_errs, train_fwd_errs = phase_bwd_kernels()
     errs = {k: max(e, train_fwd_errs[k]) for k, e in errs.items()}
+    swap_rows, swap_errs = phase_swap_kernels()
     phase_slice_parity()
-    live = phase_train_parity()
+    live, _ = phase_train_parity()
     split_train_launches = phase_split_train_parity(live)
-    launches = {"volume": phase_volume(), "volume-split": phase_split_volume()}
+    launches = {"volume": phase_volume(), "volume-split": phase_split_volume(),
+                "volume-swapped": phase_swapped_volume()}
     phase_profile()
     launches["train"], trainer, images, labels = phase_train()
     phase_train_profile(trainer, images, labels)
     launches["train-split"] = phase_split_train(trainer, images, labels)
     launches["train-split (swapped)"] = split_train_launches["split, K7 and K8"]
+    launches["train-swapped"] = phase_swapped_train(trainer, images, labels)
+    launches["rotary"], rotary_row = phase_rotary()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
 
-    def record(name, spec, rows, err):
+    def record(name, spec, rows, err, weight=lambda r: 1):
+        def total(key):
+            return sum(r[key] * weight(r) for r in rows)
+
         return {
-            "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
+            "name": name, "k": spec["k"], "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
             "path": spec["path"], "launches": launches[spec["path"]][name], "max_abs_err": err,
-            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": bound_by(sum(r["ops_ms"] for r in rows), sum(r["bytes_ms"] for r in rows)),
-            "library_ms": sum(r["library_ms"] for r in rows),
+            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": bound_by(total("ops_ms"), total("bytes_ms")),
+            "library_ms": None if any(r["library_ms"] is None for r in rows) else total("library_ms"),
         }
 
     # forward kernels: launches of their volume path, times for one 32-slice
     # chunk (the sum over their sites); backward kernels: launches of their
     # training path, times for one training step at B=8 (the sum over the sites
-    # it routes)
+    # it routes); K9, K11, K12: each site's time times its calls per forward;
+    # K10: the rotary path's forward (q and k) at batch 8
     records = [record(name, spec, [r for r in sites if r["kernel"] == name], errs[name])
                for name, spec in KERNELS.items()]
     records += [record(name, spec, [r for r in bwd_sites if r["kernel"] == name and "ms" in r], bwd_errs[name])
                 for name, spec in BWD_KERNELS.items()]
+    records += [record(name, spec, [r for r in swap_rows if r["kernel"] == name], swap_errs[name],
+                       weight=lambda r: r["calls_per_forward"])
+                for name, spec in SWAP_KERNELS.items() if name != "rotary"]
+    records.append(record("rotary", SWAP_KERNELS["rotary"], [rotary_row], rotary_row["max_abs_err"],
+                          weight=lambda r: ROTARY_PER_FORWARD["rotary"]))
     check(all(r["launches"] > 0 for r in records), f"a kernel was not launched on its path: {records}")
     emit({"kernels": records})
     print(smi, flush=True)

@@ -7,6 +7,12 @@ and in norm: fp32 1e-4 of max |grad| and 1e-5 in norm (only the order of
 summation differs); bf16 two bf16 half-ulps of max |grad| (2·2^-8 in norm) plus
 the twin's own cost of rounding ds and p (or w) to bf16, measured the same way.
 
+K9–K12 (RMSNorm, rotary, depthwise and small-channel convolution) against
+their twins: fp32 within 1e-5 of max |want| for the elementwise kernels (the
+card's rsqrtf and fused multiply-adds), and for the convolutions 1e-4 of max
+and 1e-5 in norm (order of summation); bf16 outputs within two bf16
+half-ulps of max |want| (2·2^-8), fp32 weight gradients as in fp32.
+
 Marked ``cuda``; each test skips without a CUDA device. This file imports no
 JAX, so it runs where only PyTorch is installed:
 
@@ -17,6 +23,10 @@ import pytest
 import torch
 
 from cenet_tpu_torch.ops import attention_kernels as K
+from cenet_tpu_torch.ops import depthwise as DW
+from cenet_tpu_torch.ops import rms_norm as RN
+from cenet_tpu_torch.ops import rotary as RO
+from cenet_tpu_torch.ops import smallc_conv as SC
 
 # (b, h, n, m, d) and (b, h, n, m, d, dv): ragged N/M and the slice's head dims
 DIFF_SHAPES = [(2, 2, 100, 100, 8), (1, 2, 196, 196, 20), (1, 1, 64, 100, 16), (1, 1, 196, 49, 64)]
@@ -305,3 +315,103 @@ def test_cuda_split_function_matches_cpu(cuda):
         grads.append([t.grad.cpu() for t in (q, k, v, lam)])
     for a, w in zip(grads[1], grads[0]):
         assert (a - w).abs().max() <= 1e-4 * max(1.0, float(w.abs().max()))
+
+
+def _assert_close(got, want, dtype, where, fp32_rel=1e-4, norm=1e-5):
+    """fp32: max |got − want| ≤ ``fp32_rel``·max |want| and ‖got − want‖/‖want‖ ≤
+    ``norm``; bf16 outputs: 2·2^-8·max |want|."""
+    assert got.shape == want.shape and got.dtype == dtype, where
+    e, m = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+    if dtype == torch.float32:
+        assert e <= fp32_rel * m and _rel_norm(got, want) <= norm, (where, e, m)
+    else:
+        assert e <= 2 * 2.0**-8 * m, (where, e, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rms_norm_and_rotary_match_twins(cuda, dtype):
+    """K9 with and without a weight, short and long rows, ragged chunks; K10 on
+    strided (B, N, H, D) → (B, H, N, D) views; both against their twins."""
+    g = torch.Generator().manual_seed(9)
+    for shape in [(2, 8, 100, 16), (3, 70, 32), (5, 40), (4, 13), (2, 300), (1, 1024)]:
+        x = (3 * torch.randn(*shape, generator=g)).to(cuda, dtype)
+        for w in (None, torch.randn(shape[-1], generator=g).to(cuda)):
+            got, want = RN.rms_norm(x, w), RN.rms_norm_plain(x, w)
+            torch.cuda.synchronize()
+            _assert_close(got, want, dtype, ("rms", shape, w is None), fp32_rel=1e-5)
+    for b, h, n, d in [(2, 4, 100, 8), (1, 3, 70, 40), (2, 1, 33, 6)]:
+        x = torch.randn(b, n, h, d, generator=g).to(cuda, dtype).transpose(1, 2)
+        cos, sin = RO.make_rotary_tables(n, d, device=cuda)
+        got, want = RO.apply_rotary_emb_kernel(x, cos, sin), RO.apply_rotary_emb_kernel_plain(x, cos, sin)
+        torch.cuda.synchronize()
+        _assert_close(got, want, dtype, ("rotary", b, h, n, d), fp32_rel=1e-5)
+        inter = RO.reinterleave(RO.apply_rotary_emb_kernel(RO.deinterleave(x), cos, sin))
+        _assert_close(inter, RO.apply_rotary_emb(x, cos, sin, interleaved=True), dtype,
+                      ("interleaved rotary", b, h, n, d), fp32_rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_depthwise_kernels_match_twins(cuda, dtype):
+    """K11's forward and dw on NCHW views and channels-last tensors, dilations 1–3,
+    against the twins; dw bit-identical over repeat runs; the Function's
+    gradients on the card against the same Function on the CPU."""
+    g = torch.Generator().manual_seed(10)
+    for (b, c, h, w, dil), channels_last in [((2, 5, 9, 11, 1), False), ((1, 40, 14, 10, 2), True),
+                                             ((2, 33, 7, 6, 3), False), ((2, 64, 56, 56, 1), True)]:
+        base = torch.randn(b, c, h, w, generator=g).to(cuda, dtype)
+        x = base.permute(0, 2, 3, 1)
+        x = x.contiguous() if channels_last else x
+        wt = torch.randn(c, 1, 3, 3, generator=g).to(cuda)
+        w_hwio = wt.permute(2, 3, 1, 0)
+        gg = torch.randn(b, h, w, c, generator=g).to(cuda, dtype)
+        got, dw = DW.depthwise_fwd(x, w_hwio, dil), DW.depthwise_dw(x, gg, dil)
+        torch.cuda.synchronize()
+        assert got.stride() == x.stride()
+        _assert_close(got, DW.depthwise_fwd_plain(x, w_hwio, dil), dtype, ("fwd", b, c, h, w, dil))
+        _assert_close(dw, DW.depthwise_dw_plain(x, gg, dil), torch.float32, ("dw", b, c, h, w, dil))
+        assert torch.equal(dw, DW.depthwise_dw(x, gg, dil))
+    base = torch.randn(2, 12, 15, 13, generator=g)
+    wt, gout = torch.randn(12, 1, 3, 3, generator=g), torch.randn(2, 15, 13, 12, generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        xb, wb = base.to(dev, copy=True).requires_grad_(), wt.to(dev, copy=True).requires_grad_()
+        DW.depthwise_conv3x3(xb.permute(0, 2, 3, 1), wb.permute(2, 3, 1, 0), 2).backward(gout.to(dev))
+        grads.append([xb.grad.cpu(), wb.grad.cpu()])
+    for a, w_ in zip(grads[1], grads[0]):
+        assert (a - w_).abs().max() <= 1e-4 * float(w_.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_smallc_conv_kernels_match_twins(cuda, dtype):
+    """K12's forward and fused dx/dw on ragged maps inside the domain (k 3, 5, 7;
+    Cin 8–64; Cout 8–64), NCHW views and channels-last, against the twins; dw
+    bit-identical over repeat runs; the Function on the card against the CPU."""
+    g = torch.Generator().manual_seed(11)
+    for (b, cin, cout, h, w, k), channels_last in [((1, 32, 32, 115, 110, 5), False), ((2, 8, 16, 112, 113, 7), True),
+                                                   ((1, 64, 40, 120, 112, 3), False), ((1, 16, 8, 112, 112, 3), True)]:
+        base = torch.randn(b, cin, h, w, generator=g).to(cuda, dtype)
+        x = base.permute(0, 2, 3, 1)
+        x = x.contiguous() if channels_last else x
+        w_hwio = (0.1 * torch.randn(cout, cin, k, k, generator=g)).to(cuda).permute(2, 3, 1, 0)
+        gg = torch.randn(b, cout, h, w, generator=g).to(cuda, dtype).permute(0, 2, 3, 1)
+        got = SC.conv_small_c_fwd(x, w_hwio, k // 2)
+        dx, dwk = SC.conv_small_c_bwd(x, w_hwio, gg, k // 2)
+        dxp, dwp = SC.conv_small_c_bwd_plain(x, w_hwio, gg, k // 2)
+        torch.cuda.synchronize()
+        where = (b, cin, cout, h, w, k)
+        _assert_close(got, SC.conv_small_c_plain(x, w_hwio, k // 2), dtype, ("fwd",) + where)
+        _assert_close(dx, dxp, dtype, ("dx",) + where)
+        _assert_close(dwk, dwp, torch.float32, ("dw",) + where)
+        assert torch.equal(dwk, SC.conv_small_c_bwd(x, w_hwio, gg, k // 2)[1])
+    base = torch.randn(1, 16, 112, 114, generator=g)
+    wt, gout = 0.1 * torch.randn(24, 16, 5, 5, generator=g), torch.randn(1, 112, 114, 24, generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        xb, wb = base.to(dev, copy=True).requires_grad_(), wt.to(dev, copy=True).requires_grad_()
+        SC.conv_small_c(xb.permute(0, 2, 3, 1), wb.permute(2, 3, 1, 0), 2).backward(gout.to(dev))
+        grads.append([xb.grad.cpu(), wb.grad.cpu()])
+    for a, w_ in zip(grads[1], grads[0]):
+        assert (a - w_).abs().max() <= 1e-4 * float(w_.abs().max())

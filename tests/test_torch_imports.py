@@ -36,6 +36,38 @@ def test_port_imports_no_jax():
     assert out[1].strip() == "[]"
 
 
+@pytest.mark.parametrize("module", ["binding", "rms_norm", "rotary", "depthwise", "smallc_conv"])
+def test_op_modules_import_no_jax(module):
+    code = (f"import sys; import cenet_tpu_torch.ops.{module}; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cenet_tpu', 'tools')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_cpu_tensors_never_touch_the_build_in_the_new_ops(monkeypatch):
+    """K9–K12's wrappers and Functions take their twins for CPU tensors."""
+    from cenet_tpu_torch.ops import depthwise, rms_norm, rotary, smallc_conv
+
+    def no_build(*a, **kw):
+        raise AssertionError("a CPU call reached the kernel build")
+
+    monkeypatch.setattr(build, "build", no_build)
+    monkeypatch.setattr(build, "load", no_build)
+    K.reset_launches()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 5, 16, generator=g, requires_grad=True)
+    rms_norm.RMSNormFn.apply(x, None, 1e-5).sum().backward()
+    cos, sin = rotary.make_rotary_tables(5, 16)
+    assert rotary.apply_rotary_emb_kernel(x.detach()[None], cos, sin).shape == (1, 2, 5, 16)
+    xd = torch.randn(1, 6, 7, 4, generator=g, requires_grad=True)
+    depthwise.depthwise_conv3x3(xd, torch.randn(3, 3, 1, 4, generator=g), 1).sum().backward()
+    xs = torch.randn(1, 112, 112, 8, generator=g, requires_grad=True)
+    smallc_conv.conv_small_c(xs, torch.randn(3, 3, 8, 8, generator=g), 1).sum().backward()
+    assert xd.grad.shape == xd.shape and xs.grad.shape == xs.shape
+    assert not any(K.LAUNCHES.values()), K.LAUNCHES
+
+
 def test_cpu_tensors_never_touch_the_build(monkeypatch):
     def no_build(*a, **kw):
         raise AssertionError("a CPU call reached the kernel build")
