@@ -17,14 +17,17 @@ runs K10. Phases:
 2. hold each forward kernel (K1, K2, K5) against its plain PyTorch twin at
    every main-path shape (batch 2; fp32 with TF32 off and bf16), then at a
    32-slice chunk in bf16 (against the twin in slices of 2), K5 also against
-   K1 on the same inputs, and time kernel, twin and the PyTorch library call
-   there;
+   K1 on the same inputs, check that two runs there are bit-identical, and time
+   kernel, twin and the PyTorch library call there; then time plain math
+   (``router.plain_attention``) against K2 in bf16 at dec1's head dims for
+   maps of 8–64 MB, where the router's 32 MB rule draws its line;
    2b. the same for the backward kernels (K3, K4 at every site; K6, K7 at the
    DSEB sites and K8 at the dec1 site that training routes) on their gradients,
    in max-abs and in norm, and dλ for the diff kernels, at batch 2; at the
    training batch of 8, forward and backward kernels in fp32 and bf16 against
    the twins in slices of 2, the backward's times in bf16, and whether two
-   runs on the same inputs are bit-identical;
+   runs on the same inputs are bit-identical (required of every backward that
+   sums without atomics: K3, K4, K7);
 3. slice parity: a seeded CENet-b2 (Synapse preset) on 2 slices at 224², fp32
    on the card (kernels routed) against fp32 on the CPU (twins), then bf16;
    3b. train-step parity: one fp32 forward/backward of the same model in train
@@ -45,14 +48,16 @@ runs K10. Phases:
    the split run's launch counts and slices/s;
    4c. the same with K9, K11 and K12 swapped in (fp32 and bf16 chunks);
 5. where one chunk's time goes: the bf16 forward of 32 slices timed with CUDA
-   events, and its device time by kernel from ``torch.profiler``;
+   events, and its device time by kernel from ``torch.profiler``, which must
+   show K2's tensor-core kernel and no CUDA-core instance of K2;
 6. the training path: 64 synthetic 512² slices written as ``.npz`` with a
    ``train.txt``, then ``SynapseDataset`` → ``Loader`` → ``Trainer.train_step``
    with the Synapse preset (batch 8, bf16, SGD poly, BoundaryDoU, drop-path
    0.1): img/s through the loader, the wait on it, the step's wall time on a
    resident batch, every loss, peak memory and the launch counts of the run;
 7. where one training step's time goes: ``torch.profiler`` over one bf16 step
-   (the card's busy time, and the host's);
+   (the card's busy time, and the host's), which must show K2's and K4's
+   tensor-core kernels and no CUDA-core instance of either;
    7b. ten resident bf16 steps of phase 6's trainer on the split route: step
    ms, launch counts, and one profiled step beside phase 7's;
    7c. the same with K9, K11 and K12 swapped in;
@@ -210,6 +215,8 @@ BWD_KERNELS = {
         replaces=f"{PALLAS}:212 (_pallas_attention_bwd_fused_impl)", path="train-split (swapped)"),
 }
 SPLIT_BWD = ("diff_attention_bwd", "diff_attention_bwd_split")
+# backwards that write each gradient element from one block (K6 and K8 sum with atomics)
+NO_ATOMICS_BWD = ("diff_attention_interleaved_bwd", "attention_bwd", "diff_attention_bwd_split")
 DIFF_BWD = ("diff_attention_interleaved_bwd", *SPLIT_BWD)  # these also give dλ
 # launches per 32-slice chunk on each route (every kernel not listed: none)
 VOLUME_PER_CHUNK = {"interleaved": {"diff_attention_interleaved_fwd": 3, "attention_fwd": 2},
@@ -376,7 +383,11 @@ def phase_kernels():
             row.update({f"chunk_{k}": v for k, v in
                         pair_check(got, inter, row["chunk_limit_o"], f"{site} bf16 chunk of {CHUNK}").items()})
         errs[kernel] = max(errs[kernel], row["chunk_err_o"])
-        del got, inter
+        # no forward kernel sums across blocks: two runs give the same bits
+        again = kernel_fn(kernel)(*args)
+        row["repeat_bit_identical"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(row["repeat_bit_identical"], f"{kernel} at {site}: two runs on the same inputs differ")
+        del got, inter, again
         row["ms"] = time_ms(lambda: kernel_fn(kernel)(*args))
         # the twin's N×N maps at B=32 do not fit at once: time it over the same
         # inputs in slices of 2
@@ -391,6 +402,31 @@ def phase_kernels():
         sites.append(row)
     K.reset_launches()
     return sites, errs
+
+
+SMALL_LIMIT_MB = (8, 16, 32, 64)
+
+
+def phase_small_limit(d=64):
+    """Where plain math and K2 cross on the card: ``router.plain_attention``
+    against K2 in bf16 at dec1's head dims (d = dv = 64, one head), at maps of
+    8–64 MB (B·N·M·4 bytes, the router's measure) for one slice and for a
+    training batch. Measured only: ``router._SMALL_LIMIT`` stays 32 MB, so that
+    both packages route the same sites."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    rows = []
+    for b in (1, TRAIN_B):
+        for mb in SMALL_LIMIT_MB:
+            n = round((mb * 2**20 / 4 / b) ** 0.5)
+            q, k, v = site_inputs("attention_fwd", b, 1, n, d, d, torch.bfloat16, gen)
+            rows.append({"batch": b, "n": n, "map_mb": b * n * n * 4 / 2**20,
+                         "plain_ms": time_ms(lambda: router.plain_attention(q, k, v), reps=10),
+                         "kernel_ms": time_ms(lambda: K.attention_fwd(q, k, v), reps=10)})
+    faster = {b: min((r["map_mb"] for r in rows if r["batch"] == b and r["kernel_ms"] < r["plain_ms"]), default=None)
+              for b in (1, TRAIN_B)}
+    emit({"phase": "small_limit", "limit_mb": router._SMALL_LIMIT / 2**20, "rows": rows,
+          "kernel_faster_from_map_mb": faster})
+    K.reset_launches()
 
 
 TOL_FP32_NORM = 1e-5  # fp32 backward, ‖grad − want‖ / ‖want‖
@@ -581,6 +617,8 @@ def phase_bwd_kernels():
             first, again = bwd_kernel_fn(kernel)(*call), bwd_kernel_fn(kernel)(*call)
             row["repeat_bit_identical"] = {g: bool(torch.equal(a, b))
                                            for g, a, b in zip((*grad_names(kernel), "dlam"), first, again)}
+            check(kernel not in NO_ATOMICS_BWD or all(row["repeat_bit_identical"].values()),
+                  f"{kernel} at {site}: two runs on the same inputs differ: {row['repeat_bit_identical']}")
             del first, again
             # times on the bf16 inputs of the training batch
             row["ms"] = time_ms(lambda: bwd_kernel_fn(kernel)(*call))
@@ -950,6 +988,30 @@ def phase_split_volume():
     return split_launches
 
 
+# K2's and K4's kernels by their symbols: the tensor-core designs that bf16
+# calls launch (csrc/attention_tc.cuh), and the CUDA-core instances (GROUPS = 1
+# of csrc/attention_{fwd,bwd}_common.cuh) that only fp32 calls, and K8, reach
+ATTN_KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attention_bwd_dq_tc_kernel<",
+                       "bwd_dkv_tc": r"attention_bwd_dkv_tc_kernel<",
+                       "fwd_cuda_core": r"attention_fwd_kernel<[^,<>]+, 1,",
+                       "bwd_cuda_core": r"attention_bwd_(dq|dkv)_kernel<[^,<>]+, 1,"}
+
+
+def attention_designs(kernels):
+    """Calls and device ms of K2's and K4's kernels by design, from profiler events."""
+    return {role: {"calls": sum(e.count for e in kernels if re.search(pat, e.key)),
+                   "ms": sum(e.self_device_time_total for e in kernels if re.search(pat, e.key)) / 1e3}
+            for role, pat in ATTN_KERNEL_DESIGNS.items()}
+
+
+def check_designs(designs, want, where):
+    """Each tensor-core role of ``want`` launched exactly as often as it says,
+    and no CUDA-core instance of K2 or K4."""
+    ok = all(designs[r]["calls"] == n for r, n in want.items())
+    check(ok and designs["fwd_cuda_core"]["calls"] == 0 and designs["bwd_cuda_core"]["calls"] == 0,
+          f"{where}: K2/K4 kernels by design {designs}, expected tensor-core calls {want} and no CUDA-core ones")
+
+
 def phase_profile(top: int = 12):
     """Where one chunk's forward spends the card's time: a bf16 forward of 32
     slices at 224², its wall time (CUDA events) and its device time by kernel
@@ -967,9 +1029,12 @@ def phase_profile(top: int = 12):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    designs = attention_designs(kernels)
     emit({"phase": "profile", "forward_ms": forward_ms, "device_busy_ms": busy_ms, "kernel_names": len(kernels),
+          "attention_designs": designs,
           "top": [{"name": e.key[:120], "calls": e.count, "ms": e.self_device_time_total / 1e3}
                   for e in kernels[:top]]})
+    check_designs(designs, {"fwd_tc": VOLUME_PER_CHUNK["interleaved"]["attention_fwd"]}, "bf16 chunk profile")
     del model
     torch.cuda.empty_cache()
 
@@ -1081,6 +1146,7 @@ def profile_step(trainer, images, labels, top=15):
     return {"step_wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms, "kernel_names": len(kernels),
             "kernel_launches": sum(e.count for e in kernels), "diff_attention_ms": roles,
+            "attention_designs": attention_designs(kernels),
             "slice_backward": {"calls": sum(e.count for e in scatter),
                                "device_ms": sum(e.device_time_total for e in scatter) / 1e3},
             "top": [{"name": e.key[:120], "calls": e.count, "ms": e.self_device_time_total / 1e3}
@@ -1091,8 +1157,13 @@ def profile_step(trainer, images, labels, top=15):
 
 
 def phase_train_profile(trainer, images, labels):
-    """Where one bf16 training step's device time goes (``torch.profiler``)."""
-    emit({"phase": "train_profile", **profile_step(trainer, images, labels)})
+    """Where one bf16 training step's device time goes (``torch.profiler``); K2
+    and K4 run their tensor-core kernels."""
+    prof = profile_step(trainer, images, labels)
+    emit({"phase": "train_profile", **prof})
+    per_step = TRAIN_PER_STEP["interleaved"]
+    check_designs(prof["attention_designs"], {"fwd_tc": per_step["attention_fwd"], "bwd_dq_tc": per_step["attention_bwd"],
+                                              "bwd_dkv_tc": per_step["attention_bwd"]}, "bf16 train step profile")
 
 
 def phase_split_train(trainer, images, labels, steps=10):
@@ -1642,6 +1713,7 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sources, "dir": str(build._build_dir())})
 
     sites, errs = phase_kernels()
+    phase_small_limit()
     bwd_sites, bwd_errs, train_fwd_errs = phase_bwd_kernels()
     errs = {k: max(e, train_fwd_errs[k]) for k, e in errs.items()}
     swap_rows, swap_errs = phase_swap_kernels()

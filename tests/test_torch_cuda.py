@@ -2,7 +2,10 @@
 
 Forward kernels (K1, K2, K5) on ``o`` and the LSE; backward kernels (K3, K4,
 K6, K7, K8) on their gradients and, for the diff kernels, dλ, with the limits
-of ``chip_smoke.py``, in max-abs
+of ``chip_smoke.py``. K2 and K4 run on the tensor cores in bf16 and on CUDA
+cores in fp32, so their shapes include the edges of 64-row tiles and of
+16-deep steps (N, M of 1, 63, 65 and 3136; d = dv = 128), the token views that
+``Nonlocal`` hands over, and a bit-identity check of K4. Limits in max-abs
 and in norm: fp32 1e-4 of max |grad| and 1e-5 in norm (only the order of
 summation differs); bf16 two bf16 half-ulps of max |grad| (2·2^-8 in norm) plus
 the twin's own cost of rounding ds and p (or w) to bf16, measured the same way.
@@ -31,7 +34,8 @@ from cenet_tpu_torch.ops import smallc_conv as SC
 # (b, h, n, m, d) and (b, h, n, m, d, dv): ragged N/M and the slice's head dims
 DIFF_SHAPES = [(2, 2, 100, 100, 8), (1, 2, 196, 196, 20), (1, 1, 64, 100, 16), (1, 1, 196, 49, 64)]
 ATTN_SHAPES = [(2, 1, 100, 100, 64, 64), (1, 2, 196, 196, 16, 24), (1, 1, 100, 196, 8, 8), (1, 1, 64, 64, 20, 40),
-               (1, 1, 130, 70, 128, 128)]
+               (1, 1, 130, 70, 128, 128), (1, 1, 1, 1, 64, 64), (1, 1, 1, 65, 20, 40), (2, 1, 63, 65, 64, 64),
+               (1, 1, 65, 63, 128, 128), (1, 1, 65, 1, 16, 24), (1, 1, 3136, 3136, 64, 64)]
 
 
 @pytest.fixture
@@ -101,7 +105,8 @@ def test_cuda_diff_kernel_takes_strided_views(cuda):
 BWD_DIFF_SHAPES = [(2, 2, 100, 100, 8, 16), (1, 2, 196, 196, 20, 40), (1, 1, 64, 100, 16, 32),
                    (1, 1, 130, 70, 64, 128), (1, 1, 70, 65, 128, 24)]
 BWD_ATTN_SHAPES = [(2, 1, 100, 100, 64, 64), (1, 2, 196, 196, 16, 24), (1, 1, 100, 196, 8, 8),
-                   (1, 1, 130, 70, 128, 128), (1, 1, 64, 64, 20, 40)]
+                   (1, 1, 130, 70, 128, 128), (1, 1, 64, 64, 20, 40), (1, 1, 1, 65, 64, 64), (2, 1, 63, 65, 64, 64),
+                   (1, 1, 65, 63, 128, 128), (1, 1, 3136, 3136, 64, 64)]
 
 
 def _rel_norm(got, want) -> float:
@@ -168,6 +173,54 @@ def test_cuda_attention_backward_matches_twin(cuda, dtype):
                   K.attention_bwd_plain(f[0], f[1], f[2], o, lse, do)[2])
         torch.cuda.synchronize()
         _assert_grads(got, want, want_r, dtype, (b, h, n, m, d, dv))
+
+
+def _token_views(g, b, h, n, c, dtype, device):
+    """q, k, v and dO as ``Nonlocal`` hands them over: (B, N, C) tokens with a
+    head axis, ``[:, None]`` for one head and, for two, (B, N, 2, C) viewed as
+    (B, 2, N, C) (head stride C, row stride 2C); q pre-scaled."""
+    def tok():
+        t = torch.randn(b, n, h * c, generator=g).to(device, dtype)
+        return t[:, None] if h == 1 else t.view(b, n, h, c).transpose(1, 2)
+
+    return (tok() * c**-0.5).to(dtype), tok(), tok(), tok()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_kernels_take_token_views(cuda, dtype):
+    """K2 and K4 on the strided token views of the Nonlocal sites, one head and
+    two, against their twins on contiguous copies, with the limits above; C = 20
+    gives rows of 40 bytes, whose last 8 the bf16 kernels stage by element loads."""
+    g = torch.Generator().manual_seed(6)
+    for b, h, n, c in [(2, 1, 196, 64), (1, 2, 196, 64), (2, 2, 65, 20), (1, 2, 130, 128)]:
+        q, k, v, do = _token_views(g, b, h, n, c, dtype, cuda)
+        f = [t.float().contiguous() for t in (q, k, v, do)]
+        o, lse = K.attention_fwd(q, k, v)
+        want = K.attention_fwd_plain(f[0], f[1], f[2])
+        want_w = K.attention_fwd_plain(f[0], f[1], v.contiguous())[0]
+        got = K.attention_bwd(q, k, v, o, lse, do)
+        want_b = K.attention_bwd_plain(f[0], f[1], f[2], o.float(), lse, f[3])
+        want_r = (K.attention_bwd_plain(f[0], k, f[2], o, lse, do)[0],
+                  K.attention_bwd_plain(q, f[1], f[2], o, lse, do)[1],
+                  K.attention_bwd_plain(f[0], f[1], f[2], o, lse, do)[2])
+        torch.cuda.synchronize()
+        assert (o.float() - want[0]).abs().max() <= _o_limit(dtype, want[0], want_w), (b, h, n, c)
+        assert (lse - want[1]).abs().max() <= 1e-4, (b, h, n, c)
+        _assert_grads(got, want_b, want_r, dtype, (b, h, n, c))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_repeats_bit_identical(cuda):
+    """K4 in bf16 writes each gradient element from one block (no atomics): two
+    runs on the same inputs give the same bits in dq, dk and dv."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = _token_views(g, 2, 1, 3136, 64, torch.bfloat16, cuda)
+    o, lse = K.attention_fwd(q, k, v)
+    first, again = K.attention_bwd(q, k, v, o, lse, do), K.attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
