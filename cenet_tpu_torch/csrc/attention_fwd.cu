@@ -36,5 +36,5 @@ extern "C" int cenet_attention_fwd(
   }
   cenet::Params p{{q, nullptr}, {k, nullptr}, v, nullptr, o, lse, nullptr, B, H, N, M, D, DV,
                   {{sqb, sqh, sqn}, {}}, {{skb, skh, skn}, {}}, {svb, svh, svn}};
-  return cenet::launch<float, 1>(p, s);
+  return cenet::launch<1>(p, s);
 }

@@ -1,4 +1,6 @@
-// Shared body of the two forward attention kernels (CUDA C++, sm_90a).
+// Shared fp32 body of the forward attention kernels (CUDA C++, sm_90a): the
+// design their fp32 calls launch on CUDA cores (bf16 calls run on the tensor
+// cores, attention_tc.cuh and diff_attention_tc.cuh).
 //
 // One block computes BQ = 64 query rows of one (batch, head) for GROUPS
 // softmax groups that share V:
@@ -13,11 +15,11 @@
 //           per-tile rescale (the running max changes at most once per tile);
 //   pass 2  recomputes the logits and accumulates w V, where
 //             GROUPS = 2: w = exp(s1 - m1) / l1 - lam * exp(s2 - m2) / l2,
-//                         formed in fp32 and rounded to V's dtype before the
-//                         product, as the Pallas kernel does;
-//             GROUPS = 1: w = exp(s - m), rounded to V's dtype, and the fp32
-//                         sum is divided by l at the end (deferred
-//                         normalisation, as the Pallas kernel does).
+//                         formed in fp32 (the Pallas kernel rounds it to V's
+//                         dtype, fp32 here);
+//             GROUPS = 1: w = exp(s - m), and the fp32 sum is divided by l at
+//                         the end (deferred normalisation, as the Pallas
+//                         kernel does).
 // Both passes see whole rows, so the result is the full-row softmax of the
 // Pallas kernels; only the summation order differs.
 //
@@ -37,7 +39,7 @@
 // operands of diff_attention_split_fwd.cu (q1/k1/q2/k2, any views) and the
 // interleaved layout of diff_attention_fwd.cu (group g of head pair p at head
 // 2p + g of one tensor: base + g head strides, head stride doubled) are the
-// same kernel. o is (B, Hv, N, DV) contiguous in q's dtype.
+// same kernel. o is (B, Hv, N, DV) contiguous.
 
 #pragma once
 
@@ -103,7 +105,7 @@ inline size_t smem_bytes(int groups, int D, int DV) {
 }
 
 // JV: value columns per thread (tx + 16 j, j < JV), so DV <= 16 * JV
-template <typename T, int GROUPS, int JV>
+template <int GROUPS, int JV>
 __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D, DV = p.DV, N = p.N, M = p.M;
@@ -117,18 +119,18 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(Params p) {
   const int q0 = blockIdx.x * BQ;
   const int head = blockIdx.y;           // v head (= head pair for GROUPS == 2)
   const int b = blockIdx.z;
-  const T* v = static_cast<const T*>(p.v);
+  const float* v = static_cast<const float*>(p.v);
   float lam = 0.f;
   if constexpr (GROUPS == 2) lam = *p.lam;
 
   // ---- stage this block's query rows, transposed: Qt[g][e][r]
 #pragma unroll
   for (int g = 0; g < GROUPS; ++g) {
-    const T* qg = static_cast<const T*>(p.q[g]) + b * p.sq[g].b + (long long)head * p.sq[g].h;
+    const float* qg = static_cast<const float*>(p.q[g]) + b * p.sq[g].b + (long long)head * p.sq[g].h;
     for (int idx = tid; idx < BQ * D; idx += THREADS) {
       const int e = idx % D, r = idx / D;
       const int n = q0 + r;
-      Qt[(g * D + e) * LD + r] = n < N ? to_f(qg[n * p.sq[g].n + e]) : 0.f;
+      Qt[(g * D + e) * LD + r] = n < N ? qg[n * p.sq[g].n + e] : 0.f;
     }
   }
 
@@ -144,11 +146,11 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(Params p) {
   auto load_k = [&](int k0) {
 #pragma unroll
     for (int g = 0; g < GROUPS; ++g) {
-      const T* kg = static_cast<const T*>(p.k[g]) + b * p.sk[g].b + (long long)head * p.sk[g].h;
+      const float* kg = static_cast<const float*>(p.k[g]) + b * p.sk[g].b + (long long)head * p.sk[g].h;
       for (int idx = tid; idx < BK * D; idx += THREADS) {
         const int e = idx % D, c = idx / D;
         const int m = k0 + c;
-        Kt[(g * D + e) * LD + c] = m < M ? to_f(kg[m * p.sk[g].n + e]) : 0.f;
+        Kt[(g * D + e) * LD + c] = m < M ? kg[m * p.sk[g].n + e] : 0.f;
       }
     }
   };
@@ -217,14 +219,14 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < JV; ++j) acc[i][j] = 0.f;
 
-  const T* vh = v + b * p.sv.b + (long long)head * p.sv.h;
+  const float* vh = v + b * p.sv.b + (long long)head * p.sv.h;
   for (int k0 = 0; k0 < M; k0 += BK) {
     __syncthreads();
     load_k(k0);
     for (int idx = tid; idx < BK * DV; idx += THREADS) {
       const int e = idx % DV, c = idx / DV;
       const int m = k0 + c;
-      Vs[c * DV + e] = m < M ? to_f(vh[m * p.sv.n + e]) : 0.f;
+      Vs[c * DV + e] = m < M ? vh[m * p.sv.n + e] : 0.f;
     }
     __syncthreads();
     float s[GROUPS][4][4];
@@ -237,7 +239,7 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(Params p) {
         if constexpr (GROUPS == 2)
           w = w * inv_l[0][i] - lam * (__expf(s[1][i][j] - m_run[1][i]) * inv_l[1][i]);
         if (k0 + tx + 16 * j >= M) w = 0.f;
-        Wt[(tx + 16 * j) * LD + ty * 4 + i] = round_to<T>(w);
+        Wt[(tx + 16 * j) * LD + ty * 4 + i] = w;
       }
     __syncthreads();
     const int kn = min(BK, M - k0);
@@ -255,17 +257,17 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(Params p) {
     }
   }
 
-  // ---- epilogue: o in q's dtype, fp32 LSE
-  T* o = static_cast<T*>(p.o);
+  // ---- epilogue: o and the LSE
+  float* o = static_cast<float*>(p.o);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = q0 + ty * 4 + i;
     if (n >= N) continue;
-    T* orow = o + (((long long)b * p.Hv + head) * N + n) * DV;
+    float* orow = o + (((long long)b * p.Hv + head) * N + n) * DV;
 #pragma unroll
     for (int j = 0; j < JV; ++j) {
       const int col = tx + 16 * j;
-      if (col < DV) orow[col] = from_f<T>(GROUPS == 2 ? acc[i][j] : acc[i][j] / l_run[0][i]);
+      if (col < DV) orow[col] = GROUPS == 2 ? acc[i][j] : acc[i][j] / l_run[0][i];
     }
     if (tx == 0) {
       const long long li = ((long long)b * p.Hv + head) * N + n;
@@ -275,29 +277,29 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int GROUPS, int JV>
+template <int GROUPS, int JV>
 inline int launch_jv(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(GROUPS, p.D, p.DV);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, GROUPS, JV>,
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<GROUPS, JV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.N + BQ - 1) / BQ, p.Hv, p.B);
-  attention_fwd_kernel<T, GROUPS, JV><<<grid, THREADS, smem, stream>>>(p);
+  attention_fwd_kernel<GROUPS, JV><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // Returns the launch's cudaError_t (0 on success); the kernel runs on `stream`.
-template <typename T, int GROUPS>
+template <int GROUPS>
 inline int launch(const Params& p, cudaStream_t stream) {
   if (p.D < 1 || p.D > MAX_D || p.DV < 1 || p.DV > MAX_DV || p.N < 1 || p.M < 1)
     return (int)cudaErrorInvalidValue;
   // the fewest value columns per thread that cover DV (16, 32, 40, 64, 128 on
   // the main path), so no FMA runs on a column past DV
-  if (p.DV <= 16) return launch_jv<T, GROUPS, 1>(p, stream);
-  if (p.DV <= 32) return launch_jv<T, GROUPS, 2>(p, stream);
-  if (p.DV <= 48) return launch_jv<T, GROUPS, 3>(p, stream);
-  if (p.DV <= 64) return launch_jv<T, GROUPS, 4>(p, stream);
-  return launch_jv<T, GROUPS, 8>(p, stream);
+  if (p.DV <= 16) return launch_jv<GROUPS, 1>(p, stream);
+  if (p.DV <= 32) return launch_jv<GROUPS, 2>(p, stream);
+  if (p.DV <= 48) return launch_jv<GROUPS, 3>(p, stream);
+  if (p.DV <= 64) return launch_jv<GROUPS, 4>(p, stream);
+  return launch_jv<GROUPS, 8>(p, stream);
 }
 
 }  // namespace cenet

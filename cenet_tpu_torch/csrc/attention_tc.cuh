@@ -594,7 +594,12 @@ using FwdTiles = Tiles<(KD + KV > 8 ? 8 : 4), 64>;
 using DqTiles = Tiles<4, 64>;
 using DkvTiles = Tiles<4, 32>;
 
+// The launchers are templates (of no parameter that matters) so that a source
+// compiles only the kernel instances it launches, not every (KD, KV) instance
+// of every kernel in the headers it includes.
+
 // The forward on `stream`; returns the launch's cudaError_t (0 on success).
+template <int = 0>
 inline int fwd_launch(const FwdArgs& a, int B, cudaStream_t stream) {
   if (!dims_ok(a.N, a.M, a.D, a.DV)) return (int)cudaErrorInvalidValue;
   return with_steps(a.D, a.DV, [&](auto kd, auto kv) {
@@ -606,6 +611,7 @@ inline int fwd_launch(const FwdArgs& a, int B, cudaStream_t stream) {
 
 // The dq kernel, then the dkv kernel, on `stream`; returns the first failing
 // launch's cudaError_t (0 on success).
+template <int = 0>
 inline int bwd_launch(const BwdArgs& a, int B, cudaStream_t stream) {
   if (!dims_ok(a.N, a.M, a.D, a.DV)) return (int)cudaErrorInvalidValue;
   return with_steps(a.D, a.DV, [&](auto kd, auto kv) {

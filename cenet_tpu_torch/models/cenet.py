@@ -64,11 +64,14 @@ def build_model(cfg: ExperimentConfig, device: Optional[Union[str, torch.device]
     """The configuration's CENet on ``device`` (the card unless the caller names
     another), in eval mode, with random weights drawn from a ``torch.Generator``
     seeded with ``seed`` (a fresh seed when it is None). The global RNG is left
-    as it was."""
+    as it was. Options not ported yet (``model_version`` other than ``'cenet'``,
+    ``train.remat``) raise ``NotImplementedError``."""
     dev = resolve_device(device)
     m = cfg.model
     if m.model_version != "cenet":
         raise NotImplementedError(f"model_version {m.model_version!r} is not ported yet")
+    if cfg.train.remat:
+        raise NotImplementedError("train.remat (checkpointing the encoder's blocks) is not ported yet")
     gen = torch.Generator()
     if seed is None:
         gen.seed()

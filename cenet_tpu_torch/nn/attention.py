@@ -1,9 +1,10 @@
 """Attention modules: PVT spatial-reduction attention, differential attention, non-local.
 
-Mirrors ``cenet_tpu/nn/attention.py``. ``attn_impl='xla'`` selects the naive
-full-map path (the parity path of the JAX package); any other value routes
-through :mod:`cenet_tpu_torch.ops.router`, which sends large maps on the card
-to the CUDA kernels.
+Mirrors ``cenet_tpu/nn/attention.py``. ``attn_impl`` takes the JAX package's
+names (:func:`get_attention_core`): ``'xla'`` selects the naive full-map path
+(the parity path of the JAX package), ``'chunked'`` plain math of the same
+numerics, and ``'pallas'`` the routes of :mod:`cenet_tpu_torch.ops.router`,
+which send large maps on the card to the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -20,8 +21,20 @@ from cenet_tpu_torch.ops import rotary, router
 
 
 def get_attention_core(impl: str) -> Callable:
-    """'xla': naive full map; anything else: the routed core."""
-    return router.plain_attention if impl == "xla" else router.flash_attention_core
+    """The attention core an ``attn_impl`` names, as
+    ``cenet_tpu/nn/attention.py::get_attention_core`` maps them: ``'xla'``, and
+    ``'chunked'`` (the JAX package's query-block scan, whose numerics are the
+    naive ones and which never reaches a kernel), give plain math; ``'pallas'``
+    the routed core. ``'ring'`` and an ``'@axis'`` suffix raise
+    ``NotImplementedError`` (sequence and tensor parallelism are not ported,
+    ROADMAP queue 1 item 10); any other name raises ``ValueError``."""
+    core, axis = router.parse_impl(impl)
+    if core not in ("xla", "chunked", "pallas", "ring"):
+        raise ValueError(f"unknown attention impl: {impl}")
+    if core == "ring" or axis is not None:
+        raise NotImplementedError(f"attention impl {impl!r}: ring attention and '@axis' tensor parallelism are "
+                                  "not ported yet (ROADMAP queue 1 item 10)")
+    return router.flash_attention_core if core == "pallas" else router.plain_attention
 
 
 class SRAAttention(nn.Module):
@@ -124,7 +137,7 @@ class MultiheadDiffAttn(nn.Module):
 
         qs = q * F.round_to(hd**-0.5, q.dtype)
         bias = rel_pos is not None and not self.use_rotary
-        if self.attn_impl == "xla" or bias:
+        if router.parse_impl(self.attn_impl)[0] == "xla" or bias:
             # naive reference path: full (B, 2h, N, N) maps in the reference's
             # order of ops, with its (no-op on finite inputs) nan_to_num
             logits = torch.nan_to_num(torch.matmul(qs, k.transpose(-1, -2)))
@@ -133,6 +146,10 @@ class MultiheadDiffAttn(nn.Module):
             if bias:
                 weights = weights + rel_pos
             attn = torch.matmul(weights, v)
+        elif get_attention_core(self.attn_impl) is router.plain_attention:
+            # 'chunked': the JAX router's split groups in plain math, never a kernel
+            attn = router.diff_attention_plain(qs[:, 0::2], k[:, 0::2], qs[:, 1::2], k[:, 1::2], v,
+                                               lambda_full.float())
         else:
             attn = router.diff_attention_interleaved(qs, k, v, lambda_full.float())
 

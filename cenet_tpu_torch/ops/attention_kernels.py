@@ -23,12 +23,13 @@ Mirrors the kernels of ``cenet_tpu/ops/pallas_attention.py``:
   :func:`attention_bwd`'s gradients in one launch (no router calls it), source
   ``csrc/attention_bwd_fused.cu``.
 
-K2 (:func:`attention_fwd`) and K4 (:func:`attention_bwd`) launch one of two
-hand-written designs by dtype: bf16 runs on the tensor cores (``mma.sync`` on
-bf16 tiles with fp32 sums, ``csrc/attention_tc.cuh``), fp32 on CUDA cores in
-fp32 FMA (``csrc/attention_{fwd,bwd}_common.cuh``, as every other attention
-kernel here does in both dtypes), because the tensor cores take fp32 only as
-TF32. Both keep the Pallas bodies' rounding points.
+K1–K5 launch one of two hand-written designs by dtype: bf16 runs on the tensor
+cores (``mma.sync`` on bf16 tiles with fp32 sums; ``csrc/attention_tc.cuh`` for
+K2 and K4, ``csrc/diff_attention_tc.cuh`` for K1, K3 and K5, where K5 is K1's
+kernel on the split head views), fp32 on CUDA cores in fp32 FMA
+(``csrc/attention_{fwd,bwd}_common.cuh``), because the tensor cores take fp32
+only as TF32. Both keep the Pallas bodies' rounding points. K6–K8 run on CUDA
+cores in both dtypes.
 
 :class:`DiffAttentionInterleavedFn`, :class:`DiffAttentionFn` and
 :class:`AttentionFn` pair each routed forward kernel with its backward, as the

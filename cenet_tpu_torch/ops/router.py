@@ -9,11 +9,14 @@ take the kernel: a kernel that fails raises, it is not hidden behind a fallback.
 When autograd records (grad mode on and an input requires grad), the kernel is
 reached through its ``torch.autograd.Function``, whose backward is the backward
 kernel; otherwise (``inference_mode``, ``no_grad``) the forward kernel is called
-alone and nothing is saved. The ring, ``@axis`` and chunked variants of the JAX
-routers are later work.
+alone and nothing is saved. :func:`parse_impl` splits an ``attn_impl`` string
+as the JAX package does; the ring and ``@axis`` variants of the JAX routers are
+later work (``nn.attention.get_attention_core`` raises on them).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,6 +24,16 @@ from cenet_tpu_torch.nn.functional import softmax_fp32
 from cenet_tpu_torch.ops import attention_kernels as K
 
 _SMALL_LIMIT = 32 * 1024 * 1024
+
+
+def parse_impl(impl: str) -> Tuple[str, Optional[str]]:
+    """Split an attention-impl string into (core, tensor-parallel axis), as
+    ``cenet_tpu/ops/flash_attention.py::parse_impl`` does: ``'pallas@model'`` →
+    ``('pallas', 'model')``, ``'pallas'`` → ``('pallas', None)``."""
+    if "@" in impl:
+        core, axis = impl.split("@", 1)
+        return core, axis
+    return impl, None
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -46,6 +59,12 @@ def diff_attention_core(q1, k1, q2, k2, v, lam) -> torch.Tensor:
         if _records_grad(q1, k1, q2, k2, v, lam):
             return K.DiffAttentionFn.apply(q1, k1, q2, k2, v, lam)
         return K.diff_attention_fwd(q1, k1, q2, k2, v, lam)[0]
+    return diff_attention_plain(q1, k1, q2, k2, v, lam)
+
+
+def diff_attention_plain(q1, k1, q2, k2, v, lam) -> torch.Tensor:
+    """Plain math for :func:`diff_attention_core`'s function, in the reference's
+    A₁V − λA₂V order of operations; never a kernel."""
     out1 = plain_attention(q1, k1, v)
     out2 = plain_attention(q2, k2, v)
     return out1 - lam.to(out1.dtype) * out2

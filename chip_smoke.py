@@ -12,8 +12,10 @@ run a third time with K9, K11 and K12 swapped in at their own sites
 configuration of either package routes), and a rotary ``MultiheadDiffAttn``
 runs K10. Phases:
 
-1. print the card's name and power limit, and build every kernel of both paths
-   from ``cenet_tpu_torch/csrc`` (one ``nvcc`` per source, all in parallel);
+1. print the card's name and power limit, read its SM count and maximum SM
+   clock (the special-function units' rate of exponentials, for each attention
+   kernel's ``exp_ms``), and build every kernel of both paths from
+   ``cenet_tpu_torch/csrc`` (one ``nvcc`` per source, all in parallel);
 2. hold each forward kernel (K1, K2, K5) against its plain PyTorch twin at
    every main-path shape (batch 2; fp32 with TF32 off and bf16), then at a
    32-slice chunk in bf16 (against the twin in slices of 2), K5 also against
@@ -45,22 +47,27 @@ runs K10. Phases:
    launch counts of that run;
    4b. the split route's volume path: one bf16 chunk through ``make_predict_fn``
    and one synthetic case through ``VolumeInferencer`` on both routes, with
-   the split run's launch counts and slices/s;
+   the split run's launch counts and slices/s, and the interleaved chunk's
+   distance from the same chunk with K1's twin at the DSEB sites (measured
+   only);
    4c. the same with K9, K11 and K12 swapped in (fp32 and bf16 chunks);
 5. where one chunk's time goes: the bf16 forward of 32 slices timed with CUDA
    events, and its device time by kernel from ``torch.profiler``, which must
-   show K2's tensor-core kernel and no CUDA-core instance of K2;
+   show K1's and K2's tensor-core kernels as often as the launch counts say
+   and no CUDA-core instance of either;
 6. the training path: 64 synthetic 512² slices written as ``.npz`` with a
    ``train.txt``, then ``SynapseDataset`` → ``Loader`` → ``Trainer.train_step``
    with the Synapse preset (batch 8, bf16, SGD poly, BoundaryDoU, drop-path
    0.1): img/s through the loader, the wait on it, the step's wall time on a
    resident batch, every loss, peak memory and the launch counts of the run;
 7. where one training step's time goes: ``torch.profiler`` over one bf16 step
-   (the card's busy time, and the host's), which must show K2's and K4's
-   tensor-core kernels and no CUDA-core instance of either;
+   (the card's busy time, and the host's), which must show the tensor-core
+   kernels of K1–K4 and no CUDA-core instance of any of them;
    7b. ten resident bf16 steps of phase 6's trainer on the split route: step
-   ms, launch counts, and one profiled step beside phase 7's;
-   7c. the same with K9, K11 and K12 swapped in;
+   ms, launch counts, and one profiled step beside phase 7's, which must show
+   K5 on K1's tensor-core kernel and K6's CUDA-core kernel, and no K3;
+   7c. the same as phase 6's steps with K9, K11 and K12 swapped in, profiled
+   with phase 7's designs;
 8. the rotary path: ``MultiheadDiffAttn(use_rotary=True)`` at DSEB1's width,
    batch 8, with K10 for its interleaved rotary, against the plain module.
 
@@ -330,6 +337,24 @@ def bound(kernel, b, h, n, d, dv, itemsize):
     return flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def exp_count(kernel, b, h, n):
+    """The least number of exponentials of an attention kernel at a site with
+    N = M = n: one per logit and softmax group, forward or backward."""
+    groups = 2 if kernel in ("diff_attention_interleaved_fwd", "diff_attention_fwd", *DIFF_BWD) else 1
+    return groups * b * h * n * n
+
+
+def sfu_rate():
+    """Exponentials per second the card's special-function units can give: 16
+    per SM per clock (CUDA C Programming Guide, arithmetic-instruction
+    throughput, compute capability 9.0) at the maximum SM clock that
+    ``nvidia-smi`` reports. Returns (rate, SM count, clock in MHz)."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * sms * mhz * 1e6, sms, mhz
+
+
 def bound_by(t_ops, t_bytes):
     return "operations" if t_ops >= t_bytes else "bytes"
 
@@ -345,7 +370,8 @@ def fwd_inputs(kernel, b, h, n, d, dv, dtype, gen):
 
 def pair_check(got, inter, lim, where):
     """K5's (o, LSEs) against K1's on the interleaved inputs its head views come
-    from: the same arithmetic, held to the twin's limits. Returns the readings."""
+    from: the same kernel in each dtype, held to the twin's limits. Returns the
+    readings."""
     pair = K.diff_attention_interleaved_fwd(*inter)
     e_o = amax(got[0].float() - pair[0].float())
     e_l = max(amax(g - p) for g, p in zip(got[1:], pair[1:]))
@@ -354,9 +380,10 @@ def pair_check(got, inter, lim, where):
     return {"vs_k1_err_o": e_o, "vs_k1_err_lse": e_l}
 
 
-def phase_kernels():
+def phase_kernels(exp_rate):
     """Kernel vs twin at batch 2 (fp32, bf16), then at a 32-slice chunk (bf16,
-    held against the twin in slices of 2) with times; K5 also against K1."""
+    held against the twin in slices of 2) with times, the bound and the least
+    time of its exponentials at ``exp_rate`` per second; K5 also against K1."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -396,6 +423,7 @@ def phase_kernels():
         row["ops_ms"], row["bytes_ms"] = bound(kernel, CHUNK, h, n, d, dv, 2)
         row["bound_ms"], row["bound_by"] = max(row["ops_ms"], row["bytes_ms"]), bound_by(row["ops_ms"], row["bytes_ms"])
         row["roofline_share"] = row["bound_ms"] / row["ms"]
+        row["exp_ms"] = exp_count(kernel, CHUNK, h, n) / exp_rate * 1e3
         del args, args2
         torch.cuda.empty_cache()
         emit({"phase": "kernels", **row})
@@ -577,11 +605,12 @@ def bwd_site_check(kernel, call, where):
     return r
 
 
-def phase_bwd_kernels():
+def phase_bwd_kernels(exp_rate):
     """Backward kernel vs twin at batch 2 (fp32, bf16) at its sites; then, at the
     sites the training batch of 8 routes, the forward and backward kernels at
     that batch in fp32 and bf16, held against the twins in slices of 2, and the
-    backward timed in bf16."""
+    backward timed in bf16 beside its bound and the least time of its
+    exponentials at ``exp_rate`` per second."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(1)
@@ -630,6 +659,7 @@ def phase_bwd_kernels():
             row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
             row["bound_by"] = bound_by(row["ops_ms"], row["bytes_ms"])
             row["roofline_share"] = row["bound_ms"] / row["ms"]
+            row["exp_ms"] = exp_count(kernel, TRAIN_B, h, n) / exp_rate * 1e3
             del args, call
             torch.cuda.empty_cache()
         emit({"phase": "bwd_kernels", **row})
@@ -943,10 +973,29 @@ def phase_volume():
     return launches
 
 
+@contextlib.contextmanager
+def twin_route():
+    """While open, the DSEB sites take K1's fp32 twin in place of the kernel
+    (the Pallas rounding points in fp32 torch, in slices of 2)."""
+    def twin(q, k, v, lam):
+        return torch.cat([K.diff_attention_interleaved_fwd_plain(*piece((q, k, v, lam), i))[0]
+                          for i in range(0, q.shape[0], 2)])
+
+    saved = router.diff_attention_interleaved
+    router.diff_attention_interleaved = twin
+    try:
+        yield
+    finally:
+        router.diff_attention_interleaved = saved
+
+
 def phase_split_volume():
     """The volume path on the split route against the interleaved route: one bf16
     32-slice chunk through ``make_predict_fn`` (probabilities within phase 3's
-    1e-3, argmax agreement ≥ 99.9%), then a synthetic 64-slice case through
+    1e-3, argmax agreement ≥ 99.9%), and how far the interleaved chunk lies from
+    the same chunk with the DSEB sites through K1's twin (measured only: the
+    chunk's sensitivity to bf16 roundings that go the other way at those
+    sites); then a synthetic 64-slice case through
     ``VolumeInferencer`` on each route in turns (interleaved, split, split,
     interleaved): labels agreeing on ≥ 99.9% of voxels, slices/s of each route,
     and the launch counts of one split run. Returns those counts."""
@@ -958,6 +1007,9 @@ def phase_split_volume():
     with split_route():
         split = predict(x)
     diff, agree = amax(split - inter), float((split.argmax(1) == inter.argmax(1)).float().mean())
+    with twin_route():
+        twin = predict(x)
+    twin_diff, twin_agree = amax(twin - inter), float((twin.argmax(1) == inter.argmax(1)).float().mean())
     inf = VolumeInferencer(predict, VolumeInferenceConfig(img_size=224, chunk=CHUNK, num_classes=9), device=DEV)
     image = synthetic_case(1)["image"]
     chunks = -(-image.shape[0] // CHUNK)
@@ -978,6 +1030,7 @@ def phase_split_volume():
             split_launches = launched
     label_agree = float((labels["split"] == labels["interleaved"]).mean())
     emit({"phase": "split_volume", "chunk_max_abs_prob_diff": diff, "chunk_argmax_agree": agree,
+          "chunk_max_abs_prob_diff_twin_route": twin_diff, "chunk_argmax_agree_twin_route": twin_agree,
           "case_label_agree": label_agree, "slices": int(image.shape[0]), "chunks": chunks,
           "slices_per_s": {r: [image.shape[0] / t for t in ts] for r, ts in seconds.items()},
           "launches_split": split_launches})
@@ -988,28 +1041,52 @@ def phase_split_volume():
     return split_launches
 
 
-# K2's and K4's kernels by their symbols: the tensor-core designs that bf16
-# calls launch (csrc/attention_tc.cuh), and the CUDA-core instances (GROUPS = 1
-# of csrc/attention_{fwd,bwd}_common.cuh) that only fp32 calls, and K8, reach
+# The attention kernels by their symbols: the tensor-core designs that bf16
+# calls launch, K2's and K4's (csrc/attention_tc.cuh) and K1's, K5's and K3's
+# (csrc/diff_attention_tc.cuh); the CUDA-core instances of
+# csrc/attention_{fwd,bwd}_common.cuh (the forward's first template argument is
+# GROUPS, the backward's the dtype), GROUPS = 1 (K2, K4 in fp32; K8) and
+# GROUPS = 2 (K1, K3, K5 in fp32; K7; K6, the one-launch backward)
 ATTN_KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attention_bwd_dq_tc_kernel<",
                        "bwd_dkv_tc": r"attention_bwd_dkv_tc_kernel<",
-                       "fwd_cuda_core": r"attention_fwd_kernel<[^,<>]+, 1,",
-                       "bwd_cuda_core": r"attention_bwd_(dq|dkv)_kernel<[^,<>]+, 1,"}
+                       "fwd_cuda_core": r"attention_fwd_kernel<1,",
+                       "bwd_cuda_core": r"attention_bwd_(dq|dkv)_kernel<[^,<>]+, 1,",
+                       "diff_fwd_tc": r"diff_fwd_tc_kernel<", "diff_bwd_dq_tc": r"diff_bwd_dq_tc_kernel<",
+                       "diff_bwd_dkv_tc": r"diff_bwd_dkv_tc_kernel<",
+                       "diff_fwd_cuda_core": r"attention_fwd_kernel<2,",
+                       "diff_bwd_cuda_core": r"attention_bwd_(dq_kernel<[^,<>]+, 2, \d+, false>|dkv_kernel<[^,<>]+, 2,)",
+                       "diff_bwd_one_launch": r"attention_bwd_dq_kernel<[^,<>]+, 2, \d+, true>"}
+# the kernels one bf16 call of each routed wrapper launches, by design
+BF16_DESIGNS = {"attention_fwd": ("fwd_tc",), "attention_bwd": ("bwd_dq_tc", "bwd_dkv_tc"),
+                "diff_attention_interleaved_fwd": ("diff_fwd_tc",),
+                "diff_attention_interleaved_bwd": ("diff_bwd_dq_tc", "diff_bwd_dkv_tc"),
+                "diff_attention_fwd": ("diff_fwd_tc",), "diff_attention_bwd": ("diff_bwd_one_launch",)}
 
 
 def attention_designs(kernels):
-    """Calls and device ms of K2's and K4's kernels by design, from profiler events."""
+    """Calls and device ms of the attention kernels by design, from profiler events."""
     return {role: {"calls": sum(e.count for e in kernels if re.search(pat, e.key)),
                    "ms": sum(e.self_device_time_total for e in kernels if re.search(pat, e.key)) / 1e3}
             for role, pat in ATTN_KERNEL_DESIGNS.items()}
 
 
-def check_designs(designs, want, where):
-    """Each tensor-core role of ``want`` launched exactly as often as it says,
-    and no CUDA-core instance of K2 or K4."""
-    ok = all(designs[r]["calls"] == n for r, n in want.items())
-    check(ok and designs["fwd_cuda_core"]["calls"] == 0 and designs["bwd_cuda_core"]["calls"] == 0,
-          f"{where}: K2/K4 kernels by design {designs}, expected tensor-core calls {want} and no CUDA-core ones")
+def expected_designs(per_unit):
+    """Calls of each design that the launch counts ``per_unit`` give in bf16."""
+    want = collections.Counter()
+    for name, n in per_unit.items():
+        for role in BF16_DESIGNS.get(name, ()):
+            want[role] += n
+    return want
+
+
+def check_designs(designs, per_unit, where):
+    """Every attention design launched exactly as often as the bf16 launch
+    counts ``per_unit`` say, and no other: in particular no CUDA-core instance
+    of a kernel that bf16 sends to the tensor cores."""
+    want = expected_designs(per_unit)
+    got = {r: d["calls"] for r, d in designs.items()}
+    check(all(got[r] == want[r] for r in ATTN_KERNEL_DESIGNS),
+          f"{where}: attention kernels by design {got}, expected {dict(want)} and no others")
 
 
 def phase_profile(top: int = 12):
@@ -1034,7 +1111,7 @@ def phase_profile(top: int = 12):
           "attention_designs": designs,
           "top": [{"name": e.key[:120], "calls": e.count, "ms": e.self_device_time_total / 1e3}
                   for e in kernels[:top]]})
-    check_designs(designs, {"fwd_tc": VOLUME_PER_CHUNK["interleaved"]["attention_fwd"]}, "bf16 chunk profile")
+    check_designs(designs, VOLUME_PER_CHUNK["interleaved"], "bf16 chunk profile")
     del model
     torch.cuda.empty_cache()
 
@@ -1109,18 +1186,9 @@ def phase_train(warmup=3, steps=30):
     return launches, trainer, images, labels
 
 
-# the diff-attention kernels' roles by their symbols (csrc/attention_{fwd,bwd}_common.cuh,
-# GROUPS = 2): forward (K1 or K5), dq and dk/dv of the two-launch backwards (K3,
-# K7), the one-launch backward (K6)
-DIFF_KERNEL_ROLES = {"fwd": r"attention_fwd_kernel<[^,<>]+, 2,",
-                     "bwd_dq": r"attention_bwd_dq_kernel<[^,<>]+, 2, \d+, false>",
-                     "bwd_dkv": r"attention_bwd_dkv_kernel<[^,<>]+, 2,",
-                     "bwd_one_launch": r"attention_bwd_dq_kernel<[^,<>]+, 2, \d+, true>"}
-
-
 def profile_step(trainer, images, labels, top=15):
     """``torch.profiler`` over one training step after one unprofiled step: the
-    card's busy time, the diff-attention kernels' device ms by role, the device
+    card's busy time, the attention kernels' calls and device ms by design, the device
     time of the autograd scatter of head-view gradients (``aten::slice_backward``),
     the top kernels, and the host side."""
     from torch.profiler import ProfilerActivity, profile
@@ -1136,8 +1204,6 @@ def profile_step(trainer, images, labels, top=15):
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    roles = {role: sum(e.self_device_time_total for e in kernels if re.search(pat, e.key)) / 1e3
-             for role, pat in DIFF_KERNEL_ROLES.items()}
     scatter = [e for e in events if e.key == "aten::slice_backward"]
     # the host side: operators by their own CPU time (what the Python thread spends
     # issuing the step)
@@ -1145,7 +1211,7 @@ def profile_step(trainer, images, labels, top=15):
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     return {"step_wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms, "kernel_names": len(kernels),
-            "kernel_launches": sum(e.count for e in kernels), "diff_attention_ms": roles,
+            "kernel_launches": sum(e.count for e in kernels),
             "attention_designs": attention_designs(kernels),
             "slice_backward": {"calls": sum(e.count for e in scatter),
                                "device_ms": sum(e.device_time_total for e in scatter) / 1e3},
@@ -1157,20 +1223,19 @@ def profile_step(trainer, images, labels, top=15):
 
 
 def phase_train_profile(trainer, images, labels):
-    """Where one bf16 training step's device time goes (``torch.profiler``); K2
-    and K4 run their tensor-core kernels."""
+    """Where one bf16 training step's device time goes (``torch.profiler``); K1
+    to K4 run their tensor-core kernels."""
     prof = profile_step(trainer, images, labels)
     emit({"phase": "train_profile", **prof})
-    per_step = TRAIN_PER_STEP["interleaved"]
-    check_designs(prof["attention_designs"], {"fwd_tc": per_step["attention_fwd"], "bwd_dq_tc": per_step["attention_bwd"],
-                                              "bwd_dkv_tc": per_step["attention_bwd"]}, "bf16 train step profile")
+    check_designs(prof["attention_designs"], TRAIN_PER_STEP["interleaved"], "bf16 train step profile")
 
 
 def phase_split_train(trainer, images, labels, steps=10):
     """Phase 6's bf16 trainer on its resident batch, on the split route: the
     step's ms over ``steps`` steps (CUDA events), their launch counts, and one
     profiled step (K5 and K6 device ms, the head-view gradient scatter) beside
-    phase 7's. Returns the launch counts."""
+    phase 7's, which must show K5 on K1's tensor-core kernel and K6's
+    CUDA-core kernel. Returns the launch counts."""
     with split_route():
         trainer.train_step(images, labels)  # warm-up
         torch.cuda.synchronize()
@@ -1186,6 +1251,7 @@ def phase_split_train(trainer, images, labels, steps=10):
     emit({"phase": "split_train", "steps": steps, "resident_step_ms": start.elapsed_time(end) / steps,
           "launches": launched, "profile": prof})
     check_launches(launched, TRAIN_PER_STEP["split"], steps, f"split train, {steps} steps")
+    check_designs(prof["attention_designs"], TRAIN_PER_STEP["split"], "split bf16 train step profile")
     return launched
 
 
@@ -1624,7 +1690,8 @@ def phase_swapped_train_parity(card, x2, y2, w_loss, w_grads, names, live):
 def phase_swapped_train(trainer, images, labels, steps=10):
     """Phase 6's bf16 trainer on its resident batch with K9, K11 and K12 swapped
     in: step ms over ``steps`` steps (CUDA events), every loss finite, launch
-    counts checked exactly, and one profiled step beside phase 7's."""
+    counts checked exactly, and one profiled step beside phase 7's, with the
+    same attention designs."""
     with swapped_ops():
         trainer.train_step(images, labels)  # warm-up
         torch.cuda.synchronize()
@@ -1643,6 +1710,7 @@ def phase_swapped_train(trainer, images, labels, steps=10):
           "losses": loss_values, "launches": launched, "profile": prof})
     check(all(np.isfinite(loss_values)), f"a swapped training loss is not finite: {loss_values}")
     check_launches(launched, TRAIN_PER_STEP["swapped"], steps, f"swapped train, {steps} steps")
+    check_designs(prof["attention_designs"], TRAIN_PER_STEP["swapped"], "swapped bf16 train step profile")
     return launched
 
 
@@ -1706,15 +1774,17 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    exp_rate, sms, mhz = sfu_rate()
     t0 = time.perf_counter()
     specs = (*KERNELS.values(), *BWD_KERNELS.values(), *SWAP_KERNELS.values())
     sources = sorted({os.path.splitext(os.path.basename(spec["source"]))[0] for spec in specs})
     build.build(sources)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sources, "dir": str(build._build_dir())})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sources, "dir": str(build._build_dir()),
+          "sm_count": sms, "max_sm_clock_mhz": mhz, "ex2_per_s": exp_rate})
 
-    sites, errs = phase_kernels()
+    sites, errs = phase_kernels(exp_rate)
     phase_small_limit()
-    bwd_sites, bwd_errs, train_fwd_errs = phase_bwd_kernels()
+    bwd_sites, bwd_errs, train_fwd_errs = phase_bwd_kernels(exp_rate)
     errs = {k: max(e, train_fwd_errs[k]) for k, e in errs.items()}
     swap_rows, swap_errs = phase_swap_kernels()
     phase_slice_parity()
@@ -1741,6 +1811,7 @@ def main():
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": bound_by(total("ops_ms"), total("bytes_ms")),
             "library_ms": None if any(r["library_ms"] is None for r in rows) else total("library_ms"),
+            "exp_ms": total("exp_ms") if all("exp_ms" in r for r in rows) else None,
         }
 
     # forward kernels: launches of their volume path, times for one 32-slice

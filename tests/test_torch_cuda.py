@@ -2,10 +2,11 @@
 
 Forward kernels (K1, K2, K5) on ``o`` and the LSE; backward kernels (K3, K4,
 K6, K7, K8) on their gradients and, for the diff kernels, dλ, with the limits
-of ``chip_smoke.py``. K2 and K4 run on the tensor cores in bf16 and on CUDA
-cores in fp32, so their shapes include the edges of 64-row tiles and of
-16-deep steps (N, M of 1, 63, 65 and 3136; d = dv = 128), the token views that
-``Nonlocal`` hands over, and a bit-identity check of K4. Limits in max-abs
+of ``chip_smoke.py``. K1–K5 run on the tensor cores in bf16 and on CUDA cores
+in fp32 (K5 is K1's kernel on split views), so their shapes include the edges of 64-row tiles and of 16-deep
+steps (N, M of 1, 63, 65, 196, 784 and 3136; d of 8, 16, 20 with dv = 2d, and
+d = dv = 128), the strided views that the DSEB projections and ``Nonlocal``
+hand over, and bit-identity checks of K1, K3 (δ and dλ included) and K4. Limits in max-abs
 and in norm: fp32 1e-4 of max |grad| and 1e-5 in norm (only the order of
 summation differs); bf16 two bf16 half-ulps of max |grad| (2·2^-8 in norm) plus
 the twin's own cost of rounding ds and p (or w) to bf16, measured the same way.
@@ -32,7 +33,9 @@ from cenet_tpu_torch.ops import rotary as RO
 from cenet_tpu_torch.ops import smallc_conv as SC
 
 # (b, h, n, m, d) and (b, h, n, m, d, dv): ragged N/M and the slice's head dims
-DIFF_SHAPES = [(2, 2, 100, 100, 8), (1, 2, 196, 196, 20), (1, 1, 64, 100, 16), (1, 1, 196, 49, 64)]
+DIFF_SHAPES = [(2, 2, 100, 100, 8), (1, 2, 196, 196, 20), (1, 1, 64, 100, 16), (1, 1, 196, 49, 64),
+               (1, 1, 1, 1, 8), (1, 1, 1, 65, 16), (2, 1, 63, 65, 20), (1, 2, 65, 63, 8), (2, 2, 65, 1, 16),
+               (1, 2, 784, 784, 16), (2, 1, 196, 784, 20), (1, 1, 130, 70, 64)]
 ATTN_SHAPES = [(2, 1, 100, 100, 64, 64), (1, 2, 196, 196, 16, 24), (1, 1, 100, 196, 8, 8), (1, 1, 64, 64, 20, 40),
                (1, 1, 130, 70, 128, 128), (1, 1, 1, 1, 64, 64), (1, 1, 1, 65, 20, 40), (2, 1, 63, 65, 64, 64),
                (1, 1, 65, 63, 128, 128), (1, 1, 65, 1, 16, 24), (1, 1, 3136, 3136, 64, 64)]
@@ -103,7 +106,9 @@ def test_cuda_diff_kernel_takes_strided_views(cuda):
 # (b, h, n, m, d, dv) for the backward kernels: ragged N/M, every head dim of
 # the main path, and dv ≠ 2d
 BWD_DIFF_SHAPES = [(2, 2, 100, 100, 8, 16), (1, 2, 196, 196, 20, 40), (1, 1, 64, 100, 16, 32),
-                   (1, 1, 130, 70, 64, 128), (1, 1, 70, 65, 128, 24)]
+                   (1, 1, 130, 70, 64, 128), (1, 1, 70, 65, 128, 24), (1, 1, 1, 63, 8, 16), (2, 1, 63, 65, 16, 32),
+                   (1, 2, 65, 63, 20, 40), (2, 2, 1, 65, 20, 40), (1, 2, 784, 784, 8, 16),
+                   (2, 1, 784, 196, 16, 32), (1, 1, 196, 784, 20, 40)]
 BWD_ATTN_SHAPES = [(2, 1, 100, 100, 64, 64), (1, 2, 196, 196, 16, 24), (1, 1, 100, 196, 8, 8),
                    (1, 1, 130, 70, 128, 128), (1, 1, 64, 64, 20, 40), (1, 1, 1, 65, 64, 64), (2, 1, 63, 65, 64, 64),
                    (1, 1, 65, 63, 128, 128), (1, 1, 3136, 3136, 64, 64)]
@@ -210,6 +215,76 @@ def test_cuda_attention_kernels_take_token_views(cuda, dtype):
         _assert_grads(got, want_b, want_r, dtype, (b, h, n, c))
 
 
+def _dseb_views(g, b, n, h, d, dtype, device):
+    """q, k, v and dO as ``MultiheadDiffAttn`` hands them over: (B, N, heads, ·)
+    projections viewed as (B, heads, N, ·); q pre-scaled."""
+    def view(heads, width, scale=1.0):
+        return (torch.randn(b, n, heads, width, generator=g) * scale).to(device, dtype).transpose(1, 2)
+
+    return view(2 * h, d, d**-0.5), view(2 * h, d), view(h, 2 * d), view(h, 2 * d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_diff_kernels_take_dseb_views(cuda, dtype):
+    """K1 and K3 on the strided views of the DSEB sites' head dims (d = 8, 16,
+    20; row stride 2h·d, head stride d, so group 2 starts d elements in) against
+    their twins on contiguous copies, with the limits above."""
+    g = torch.Generator().manual_seed(8)
+    lam = torch.tensor(0.37, device=cuda)
+    for b, n, h, d in [(2, 150, 4, 20), (1, 196, 8, 8), (2, 65, 2, 16), (1, 784, 8, 16)]:
+        q, k, v, do = _dseb_views(g, b, n, h, d, dtype, cuda)
+        f = [t.float().contiguous() for t in (q, k, v, do)]
+        got = K.diff_attention_interleaved_fwd(q, k, v, lam)
+        want = K.diff_attention_interleaved_fwd_plain(f[0], f[1], f[2], lam)
+        want_w = K.diff_attention_interleaved_fwd_plain(f[0], f[1], v.contiguous(), lam)[0]
+        grads = K.diff_attention_interleaved_bwd(q, k, v, lam, want[1], want[2], do)
+        want_b = K.diff_attention_interleaved_bwd_plain(f[0], f[1], f[2], lam, want[1], want[2], f[3])
+        want_r = (K.diff_attention_interleaved_bwd_plain(f[0], k, f[2], lam, want[1], want[2], do)[0],
+                  K.diff_attention_interleaved_bwd_plain(q, f[1], f[2], lam, want[1], want[2], do)[1],
+                  K.diff_attention_interleaved_bwd_plain(f[0], f[1], f[2], lam, want[1], want[2], do)[2])
+        torch.cuda.synchronize()
+        assert (got[0].float() - want[0]).abs().max() <= _o_limit(dtype, want[0], want_w), (b, n, h, d)
+        assert max((a - w).abs().max() for a, w in zip(got[1:], want[1:])) <= 1e-4, (b, n, h, d)
+        _assert_grads(grads[:3], want_b[:3], want_r, dtype, (b, n, h, d))
+        assert abs(float(grads[3]) - float(want_b[3])) <= 1e-4 * max(1.0, abs(float(want_b[3])))
+
+
+def _diff_bwd_with_deltas(q, k, v, lam, lse1, lse2, do):
+    """K3's C entry as ``diff_attention_interleaved_bwd`` calls it, returning
+    the per-row δ₁, δ₂ that its dq kernel writes besides dq, dk and dv."""
+    from cenet_tpu_torch.ops import binding
+
+    b, h2, n, d = q.shape
+    m, dv = k.shape[2], v.shape[3]
+    d1, d2 = (torch.empty((b, h2 // 2, n), dtype=torch.float32, device=q.device) for _ in range(2))
+    dq, dk, dvv = (torch.empty(shape, dtype=q.dtype, device=q.device)
+                   for shape in ((b, h2, n, d), (b, h2, m, d), (b, h2 // 2, m, dv)))
+    rc = K._kernel("diff_attention_bwd", "cenet_diff_attention_bwd")(
+        binding.is_bf16(q), *binding.ptrs(q, k, v, do, lam, lse1, lse2, d1, d2, dq, dk, dvv), b, h2 // 2, n, m, d, dv,
+        *binding.strides(q), *binding.strides(k), *binding.strides(v), *binding.strides(do), binding.stream())
+    binding.raise_on("diff_attention_bwd", rc)
+    return dq, dk, dvv, d1, d2
+
+
+@pytest.mark.cuda
+def test_cuda_diff_kernels_repeat_bit_identical(cuda):
+    """K1 and K3 in bf16 write each output element from one block (no atomics):
+    two runs on the same inputs give the same bits in o and both LSEs, in dq,
+    dk, dv, in the per-row δ₁, δ₂ and in dλ."""
+    g = torch.Generator().manual_seed(9)
+    lam = torch.tensor(0.37, device=cuda)
+    for b, n, h, d in [(2, 3136, 8, 8), (2, 784, 8, 16)]:
+        q, k, v, do = _dseb_views(g, b, n, h, d, torch.bfloat16, cuda)
+        first, again = K.diff_attention_interleaved_fwd(q, k, v, lam), K.diff_attention_interleaved_fwd(q, k, v, lam)
+        grads = [K.diff_attention_interleaved_bwd(q, k, v, lam, first[1], first[2], do) for _ in range(2)]
+        deltas = [_diff_bwd_with_deltas(q, k, v, lam, first[1], first[2], do) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b_ in zip((*first, *grads[0], *deltas[0]), (*again, *grads[1], *deltas[1])):
+            assert torch.equal(a, b_), (b, n, h, d)
+        assert torch.equal(grads[0][3], -deltas[0][4].sum())
+
+
 @pytest.mark.cuda
 def test_cuda_attention_backward_repeats_bit_identical(cuda):
     """K4 in bf16 writes each gradient element from one block (no atomics): two
@@ -266,7 +341,7 @@ def _split_inputs(g, b, h, n, m, d, dv, dtype, device):
 def test_cuda_split_forward_matches_twin_and_pair_kernel(cuda, dtype):
     """K5 on the 0::2 / 1::2 head views against its twin (o within ``_o_limit``,
     LSEs within 1e-4), and against K1 on the same interleaved inputs where
-    dv = 2d (the same arithmetic)."""
+    dv = 2d: the same kernel in each dtype, so equal to the bit."""
     g = torch.Generator().manual_seed(5)
     lam = torch.tensor(0.37, device=cuda)
     for b, h, n, m, d in DIFF_SHAPES:
@@ -281,6 +356,7 @@ def test_cuda_split_forward_matches_twin_and_pair_kernel(cuda, dtype):
         assert max((a - b_).abs().max() for a, b_ in zip(got[1:], want[1:])) <= 1e-4
         assert (got[0].float() - pair[0].float()).abs().max() <= lim
         assert max((a - b_).abs().max() for a, b_ in zip(got[1:], pair[1:])) <= 1e-4
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, pair)), (b, h, n, m, d)
 
 
 def _split_refs(groups, v, lam, lse1, lse2, do):
