@@ -69,10 +69,10 @@ struct Strides {
   long long b, h, n;
 };
 
-// base advanced by `elems` elements of the kernel's dtype (group 2's view of
-// an interleaved tensor starts one head stride in)
-inline const void* offset(const void* base, long long elems, int is_bf16) {
-  return static_cast<const char*>(base) + elems * (is_bf16 ? 2 : 4);
+// base advanced by `elems` elements of type T (group 2's view of an
+// interleaved tensor starts one head stride in)
+template <typename T> inline const void* offset(const void* base, long long elems) {
+  return static_cast<const char*>(base) + elems * sizeof(T);
 }
 
 struct Params {

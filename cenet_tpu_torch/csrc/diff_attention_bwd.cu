@@ -44,11 +44,11 @@ extern "C" int cenet_diff_attention_bwd(
   if (is_bf16) {
     namespace tc = cenet::tc;
     auto group = [&](const void* x, int g, long long sb, long long sh, long long sn) {
-      return tc::operand(cenet::offset(x, g * sh, 1), sb, 2 * sh, sn, B, H);
+      return tc::operand(cenet::offset<tc::bf16>(x, g * sh), sb, 2 * sh, sn, B, H);
     };
     auto out = [&](void* x, int g, int rows) {
-      return tc::out_rows(const_cast<void*>(cenet::offset(x, (long long)g * rows * D, 1)), 2LL * H * rows * D,
-                          2LL * rows * D, D);
+      return tc::out_rows(const_cast<void*>(cenet::offset<tc::bf16>(x, (long long)g * rows * D)),
+                          2LL * H * rows * D, 2LL * rows * D, D);
     };
     const tc::DiffBwdArgs a{{group(q, 0, sqb, sqh, sqn), group(q, 1, sqb, sqh, sqn)},
                             {group(k, 0, skb, skh, skn), group(k, 1, skb, skh, skn)},
@@ -60,10 +60,10 @@ extern "C" int cenet_diff_attention_bwd(
   }
   const cenet::Strides sq{sqb, 2 * sqh, sqn}, sk{skb, 2 * skh, skn};
   const cenet::Strides sdq{2LL * H * N * D, 2LL * N * D, D}, sdk{2LL * H * M * D, 2LL * M * D, D};
-  cenet::BwdParams p{{q, cenet::offset(q, sqh, is_bf16)}, {k, cenet::offset(k, skh, is_bf16)}, v, dout, lam,
+  cenet::BwdParams p{{q, cenet::offset<float>(q, sqh)}, {k, cenet::offset<float>(k, skh)}, v, dout, lam,
                      lse1, lse2, delta1, delta2,
-                     {dq, const_cast<void*>(cenet::offset(dq, (long long)N * D, is_bf16))},
-                     {dk, const_cast<void*>(cenet::offset(dk, (long long)M * D, is_bf16))}, dv, B, H, N, M, D, DV,
+                     {dq, const_cast<void*>(cenet::offset<float>(dq, (long long)N * D))},
+                     {dk, const_cast<void*>(cenet::offset<float>(dk, (long long)M * D))}, dv, B, H, N, M, D, DV,
                      {sq, sq}, {sk, sk}, {svb, svh, svn}, {sob, soh, son}, {sdq, sdq}, {sdk, sdk}};
   return cenet::bwd_launch<float, 2, false>(p, s);
 }

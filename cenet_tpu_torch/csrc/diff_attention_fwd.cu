@@ -35,7 +35,7 @@ extern "C" int cenet_diff_attention_fwd(
   if (is_bf16) {
     namespace tc = cenet::tc;
     auto group = [&](const void* x, int g, long long sb, long long sh, long long sn) {
-      return tc::operand(cenet::offset(x, g * sh, 1), sb, 2 * sh, sn, B, H);
+      return tc::operand(cenet::offset<tc::bf16>(x, g * sh), sb, 2 * sh, sn, B, H);
     };
     const tc::DiffFwdArgs a{{group(q, 0, sqb, sqh, sqn), group(q, 1, sqb, sqh, sqn)},
                             {group(k, 0, skb, skh, skn), group(k, 1, skb, skh, skn)},
@@ -43,7 +43,7 @@ extern "C" int cenet_diff_attention_fwd(
                             H, N, M, D, DV, tc::out_vec(o, DV)};
     return tc::diff_fwd_launch(a, B, s);
   }
-  cenet::Params p{{q, cenet::offset(q, sqh, is_bf16)}, {k, cenet::offset(k, skh, is_bf16)}, v, lam, o, lse1, lse2,
+  cenet::Params p{{q, cenet::offset<float>(q, sqh)}, {k, cenet::offset<float>(k, skh)}, v, lam, o, lse1, lse2,
                   B, H, N, M, D, DV, {{sqb, 2 * sqh, sqn}, {sqb, 2 * sqh, sqn}},
                   {{skb, 2 * skh, skn}, {skb, 2 * skh, skn}}, {svb, svh, svn}};
   return cenet::launch<2>(p, s);

@@ -137,7 +137,8 @@ class MultiheadDiffAttn(nn.Module):
 
         qs = q * F.round_to(hd**-0.5, q.dtype)
         bias = rel_pos is not None and not self.use_rotary
-        if router.parse_impl(self.attn_impl)[0] == "xla" or bias:
+        core = router.parse_impl(self.attn_impl)[0]
+        if core == "xla" or bias:
             # naive reference path: full (B, 2h, N, N) maps in the reference's
             # order of ops, with its (no-op on finite inputs) nan_to_num
             logits = torch.nan_to_num(torch.matmul(qs, k.transpose(-1, -2)))
@@ -146,12 +147,14 @@ class MultiheadDiffAttn(nn.Module):
             if bias:
                 weights = weights + rel_pos
             attn = torch.matmul(weights, v)
-        elif get_attention_core(self.attn_impl) is router.plain_attention:
-            # 'chunked': the JAX router's split groups in plain math, never a kernel
-            attn = router.diff_attention_plain(qs[:, 0::2], k[:, 0::2], qs[:, 1::2], k[:, 1::2], v,
-                                               lambda_full.float())
         else:
-            attn = router.diff_attention_interleaved(qs, k, v, lambda_full.float())
+            get_attention_core(self.attn_impl)  # raises on an unknown name, 'ring' and '@axis'
+            if core == "chunked":
+                # the JAX router's split groups in plain math, never a kernel
+                attn = router.diff_attention_plain(qs[:, 0::2], k[:, 0::2], qs[:, 1::2], k[:, 1::2], v,
+                                                   lambda_full.float())
+            else:
+                attn = router.diff_attention_interleaved(qs, k, v, lambda_full.float())
 
         attn = self.subln(attn) * (1 - self.lambda_init)
         attn = attn.transpose(1, 2).reshape(B, N, h * 2 * hd)

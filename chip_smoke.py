@@ -1811,7 +1811,6 @@ def main():
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": bound_by(total("ops_ms"), total("bytes_ms")),
             "library_ms": None if any(r["library_ms"] is None for r in rows) else total("library_ms"),
-            "exp_ms": total("exp_ms") if all("exp_ms" in r for r in rows) else None,
         }
 
     # forward kernels: launches of their volume path, times for one 32-slice

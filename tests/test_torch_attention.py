@@ -31,6 +31,7 @@ def _x(shape, seed=0):
 
 @pytest.mark.parametrize("impl,heads,kv_heads,n", [
     ("pallas", 4, None, 100), ("pallas", 2, None, 196), ("xla", 4, None, 100), ("xla", 4, 2, 64),
+    ("chunked", 4, None, 100),
 ])
 def test_multihead_diff_attn_matches_jax(pallas_interpret, impl, heads, kv_heads, n):
     x = _x((2, n, 64))
