@@ -18,6 +18,9 @@
 // "round" is the cast to the operands' dtype that the Pallas kernels make
 // before each product; logits, P, G, ds and delta are fp32, and every product
 // accumulates in fp32, cast to the output dtype once at the end.
+// Which calls run this body: fp32 calls of K3, K4, K7 and K8, and K6 in both
+// dtypes; bf16 calls of K3, K4, K7 and K8 run the tensor-core kernels of
+// attention_tc.cuh and diff_attention_tc.cuh.
 //
 // Two kernels:
 //   dq kernel   one block per BQ = 64 query rows of one (batch, head),

@@ -1,7 +1,8 @@
 // Attention forward and backward on Hopper's tensor cores, bf16 (sm_90a).
 //
-// The bf16 designs of K2 (attention_fwd.cu) and K4 (attention_bwd.cu), which
-// replace _pallas_attention_fwd_impl and _pallas_attention_bwd_impl of
+// The bf16 designs of K2 (attention_fwd.cu), K4 (attention_bwd.cu) and K8
+// (attention_bwd_fused.cu), which replace _pallas_attention_fwd_impl,
+// _pallas_attention_bwd_impl and _pallas_attention_bwd_fused_impl of
 // cenet_tpu/ops/pallas_attention.py:
 //   o = softmax(q k^T) v,  q/k (B, H, N|M, d), v (B, H, M, dv), q pre-scaled;
 //   P = exp(q k^T - lse), ds = P (dO v^T - Delta),
@@ -48,10 +49,26 @@
 //                                dv += round(P^T) dO, dk += round(ds^T) Q.
 //                                Working on the transposes keeps every A
 //                                operand in registers.
+//   attention_bwd_fused_tc_kernel  K8: the dkv kernel that also forms dq, so
+//                                each (key tile, query tile) pair's logits
+//                                are computed once. Each step writes
+//                                round(ds^T) (the A operand of dk) to a shared
+//                                BM x BN tile and passes one barrier; warps
+//                                then read it back as ds with ldmatrix.trans
+//                                (the A operand of ds K) against the block's
+//                                own K tile, and add the query tile's dq
+//                                partial (BN x d, summed over the block's keys)
+//                                into a zeroed fp32 (B, H, N, d) buffer with
+//                                16-byte vector reductions (red.global.add
+//                                .v4.f32, four columns a lane after one
+//                                shuffle). The caller casts that buffer once.
 // The dq and dkv kernels run one after the other on the caller's stream and
 // each output element is written by one block: no atomics, and repeat runs
-// are bit-identical. The tilings (FwdTiles, DqTiles, DkvTiles) were chosen by
-// timing the Nonlocal sites on an H100.
+// are bit-identical. K8's dk and dv are written the same way and repeat
+// exactly; its dq sums across key tiles in no fixed order, so repeat runs
+// differ in dq's last bits, as the CUDA-core K8 does. The tilings (FwdTiles,
+// DqTiles, DkvTiles, FusedTiles) were chosen by timing the Nonlocal sites on
+// an H100.
 //
 // Shared tiles: rows of 16 KD (or 16 KV) bf16 with 8 more as padding, so the
 // eight 16-byte rows of an ldmatrix tile fall on distinct banks. d and dv are
@@ -126,6 +143,7 @@ struct BwdArgs {
   bf16* dv;            // (B, H, M, DV)
   int H, N, M, D, DV;
   int vec_dq, vec_dk, vec_dv;
+  float* dq_acc;       // the fused kernel's dq: fp32 (B, H, N, D), zeroed by the caller
 };
 
 // Stage rows row0 .. row0+ROWS-1 (of `rows`) and columns 0 .. 8 CH - 1 (of
@@ -438,9 +456,46 @@ __global__ void __launch_bounds__(C::THREADS) attention_bwd_dq_tc_kernel(const B
   store_tile<NT, BM, 2 * KD>(Qs, PD, p.dq + bh * N * p.D, q0, N, p.D, p.vec_dq);
 }
 
-template <int KD, int KV, class C>
-__global__ void __launch_bounds__(C::THREADS) attention_bwd_dkv_tc_kernel(const BwdArgs p) {
+// Rows row0 + g, row0 + g + 8 and columns col0 + 8 nb + 2t, + 1 of a warp's
+// 16 x 8 NB fp32 accumulator, added into the fp32 (rows, cols) matrix `out`
+// with reductions; rows past `rows` and columns past `cols` are skipped. Where
+// cols % 4 == 0, lanes t and t ^ 1 trade half their sums (one shuffle pair),
+// so that the even lane adds row g, columns 2t .. 2t+3 and the odd lane row
+// g + 8, columns 2t-2 .. 2t+1, each as one 16-byte red.global.add.v4.f32.
+template <int NB>
+__device__ __forceinline__ void red_add_rows(float* out, int row0, int col0, int rows, int cols,
+                                             const float (&c)[NB][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (cols % 4 == 0) {
+    const bool odd = t & 1;
+    const int row = row0 + g + (odd ? 8 : 0);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const float x = __shfl_xor_sync(0xffffffffu, odd ? c[nb][0] : c[nb][2], 1);
+      const float y = __shfl_xor_sync(0xffffffffu, odd ? c[nb][1] : c[nb][3], 1);
+      const int col = col0 + nb * 8 + 2 * (t & 2);
+      if (row < rows && col < cols)
+        atomicAdd(reinterpret_cast<float4*>(out + (long long)row * cols + col),
+                  odd ? make_float4(x, y, c[nb][2], c[nb][3]) : make_float4(c[nb][0], c[nb][1], x, y));
+    }
+  } else {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = row0 + g + 8 * (j >> 1), col = col0 + nb * 8 + 2 * t + (j & 1);
+        if (row < rows && col < cols) atomicAdd(out + (long long)row * cols + col, c[nb][j]);
+      }
+  }
+}
+
+// The dk/dv kernel's body (K4's attention_bwd_dkv_tc_kernel) and, with FUSED,
+// K8's: the same loop, which then also adds each query tile's dq partial into
+// p.dq_acc through a shared ds tile.
+template <int KD, int KV, class C, bool FUSED>
+__device__ __forceinline__ void bwd_dkv_body(const BwdArgs& p) {
   constexpr int PD = pitch(KD), PV = pitch(KV), BM = C::BM, BN = C::BS, NT = C::THREADS, NB = BN / 8;
+  constexpr int PS = pitch(BN / 16);  // the ds tile's pitch
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* Ks = reinterpret_cast<bf16*>(tc_smem);  // [BM][PD]
   bf16* Vs = Ks + BM * PD;                       // [BM][PV]
@@ -448,6 +503,7 @@ __global__ void __launch_bounds__(C::THREADS) attention_bwd_dkv_tc_kernel(const 
   bf16* Os = Qs + STAGES * BN * PD;              // [STAGES][BN][PV]   dO
   float* Ls = reinterpret_cast<float*>(Os + STAGES * BN * PV);  // [STAGES][BN]   lse
   float* Ds = Ls + STAGES * BN;                                  // [STAGES][BN]   Delta
+  bf16* Ss = reinterpret_cast<bf16*>(Ds + STAGES * BN);          // [BM][PS]   round(ds^T), FUSED only
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BM, w0 = warp * 16;
@@ -484,7 +540,7 @@ __global__ void __launch_bounds__(C::THREADS) attention_bwd_dkv_tc_kernel(const 
   float dk[2 * KD][4] = {}, dv[2 * KV][4] = {};
   for (int s = 0; s < T; ++s) {
     cp_async_wait<STAGES - 2>();  // query tile s has landed
-    __syncthreads();              // ... for every thread, and tile s - 1's buffer is free
+    __syncthreads();              // ... for every thread, and tile s - 1's buffers (and ds tile) are free
     issue(s + STAGES - 1);
     if (s == 0) {
       load_a<KD>(ka, Ks, PD, w0);
@@ -521,6 +577,38 @@ __global__ void __launch_bounds__(C::THREADS) attention_bwd_dkv_tc_kernel(const 
     if (n0 + BN <= N) grads(std::false_type{}); else grads(std::true_type{});
     mma_kn<NB / 2, 2 * KV>(dv, pa, Ob, PV);
     mma_kn<NB / 2, 2 * KD>(dk, dsa, Qb, PD);
+    if constexpr (FUSED) {
+      // round(ds^T) of this warp's 16 keys into the ds tile (dsa's bits, so dq
+      // and dk use the same rounded ds); keys past M as zeros, since their
+      // zero-staged K rows give them logits of 0 and P = exp(-lse)
+      const int g = lane >> 2;
+      const bool lo = k0 + w0 + g < M, hi = k0 + w0 + g + 8 < M;
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        uint32_t* r0 = reinterpret_cast<uint32_t*>(Ss + (w0 + g) * PS + 16 * kk + 2 * t);
+        uint32_t* r8 = reinterpret_cast<uint32_t*>(Ss + (w0 + g + 8) * PS + 16 * kk + 2 * t);
+        r0[0] = lo ? dsa[kk][0] : 0u;
+        r8[0] = hi ? dsa[kk][1] : 0u;
+        r0[4] = lo ? dsa[kk][2] : 0u;  // 8 columns on
+        r8[4] = hi ? dsa[kk][3] : 0u;
+      }
+      __syncthreads();
+      // dq partial = ds K (BN x 16 KD over the block's BM keys): R blocks of 16
+      // query rows times CG groups of NQ 8-column blocks, one warp each
+      constexpr int R = BN / 16, CG0 = C::NW / R, CG = CG0 < KD ? CG0 : KD, NQ = 2 * KD / CG, KS = BM / 16;
+      static_assert(R <= C::NW, "a warp for each 16 query rows");
+      if (warp < R * CG) {
+        const int rb = warp % R, cg = warp / R;
+        // A fragments of ds (rows: queries) from the [key][query] tile, transposed by ldmatrix
+        uint32_t da[KS][4];
+        const bf16* pa_s = Ss + ((lane & 7) + (lane >> 4) * 8) * PS + rb * 16 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) ldsm_x4_trans(da[kk], pa_s + kk * 16 * PS);
+        float part[NQ][4] = {};
+        mma_kn<KS, NQ>(part, da, Ks + cg * NQ * 8, PD);
+        red_add_rows<NQ>(p.dq_acc + bh * N * p.D, n0 + rb * 16, cg * NQ * 8, N, p.D, part);
+      }
+    }
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -531,6 +619,16 @@ __global__ void __launch_bounds__(C::THREADS) attention_bwd_dkv_tc_kernel(const 
   __syncthreads();
   store_tile<NT, BM, 2 * KD>(Ks, PD, p.dk + bh * M * p.D, k0, M, p.D, p.vec_dk);
   store_tile<NT, BM, 2 * KV>(Vs, PV, p.dv + bh * M * p.DV, k0, M, p.DV, p.vec_dv);
+}
+
+template <int KD, int KV, class C>
+__global__ void __launch_bounds__(C::THREADS) attention_bwd_dkv_tc_kernel(const BwdArgs p) {
+  bwd_dkv_body<KD, KV, C, false>(p);
+}
+
+template <int KD, int KV, class C>
+__global__ void __launch_bounds__(C::THREADS) attention_bwd_fused_tc_kernel(const BwdArgs p) {
+  bwd_dkv_body<KD, KV, C, true>(p);
 }
 
 template <class C>
@@ -544,6 +642,10 @@ inline size_t dq_smem(int kd, int kv) {
 template <class C>
 inline size_t dkv_smem(int kd, int kv) {
   return 2 * (C::BM + STAGES * C::BS) * (pitch(kd) + pitch(kv)) + 2 * 4 * STAGES * C::BS;
+}
+template <class C>
+inline size_t fused_smem(int kd, int kv) {
+  return dkv_smem<C>(kd, kv) + 2 * C::BM * pitch(C::BS / 16);  // and the ds tile
 }
 
 // 16-deep steps that cover d, rounded up to a power of two
@@ -593,6 +695,10 @@ template <int KD, int KV>
 using FwdTiles = Tiles<(KD + KV > 8 ? 8 : 4), 64>;
 using DqTiles = Tiles<4, 64>;
 using DkvTiles = Tiles<4, 32>;
+// K8: 64 keys (4 warps) against query tiles of 32. 128 keys (8 warps) halve
+// the dq reductions but ran a third slower at dec1 (PERF.md; timed with
+// cenet_tpu_torch/tools/time_tilings.py)
+using FusedTiles = Tiles<4, 32>;
 
 // The launchers are templates (of no parameter that matters) so that a source
 // compiles only the kernel instances it launches, not every (KD, KV) instance
@@ -621,6 +727,17 @@ inline int bwd_launch(const BwdArgs& a, int B, cudaStream_t stream) {
     if (rc != 0) return rc;
     return launch_one<DkvTiles>(attention_bwd_dkv_tc_kernel<KD, KV, DkvTiles>, a.M, a.H, B,
                                 dkv_smem<DkvTiles>(KD, KV), stream, a);
+  });
+}
+
+// K8's one kernel on `stream` (a.dq_acc zeroed by the caller; a.dq unused),
+// with tiling C; returns the launch's cudaError_t (0 on success).
+template <class C = FusedTiles>
+inline int bwd_fused_launch(const BwdArgs& a, int B, cudaStream_t stream) {
+  if (!dims_ok(a.N, a.M, a.D, a.DV)) return (int)cudaErrorInvalidValue;
+  return with_steps(a.D, a.DV, [&](auto kd, auto kv) {
+    constexpr int KD = decltype(kd)::value, KV = decltype(kv)::value;
+    return launch_one<C>(attention_bwd_fused_tc_kernel<KD, KV, C>, a.M, a.H, B, fused_smem<C>(KD, KV), stream, a);
   });
 }
 

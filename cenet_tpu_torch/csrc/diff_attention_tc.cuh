@@ -1,13 +1,17 @@
 // Differential attention forward and backward on Hopper's tensor cores, bf16
 // (sm_90a).
 //
-// The bf16 designs of K1 (diff_attention_fwd.cu) and K3 (diff_attention_bwd.cu),
-// which replace _diff_fwd_pair_impl and _diff_bwd_pair_impl of
-// cenet_tpu/ops/pallas_attention.py. Two softmax groups share V:
+// The bf16 designs of K1 (diff_attention_fwd.cu), K3 (diff_attention_bwd.cu)
+// and K7 (diff_attention_split_bwd_two_kernel.cu), which replace
+// _diff_fwd_pair_impl, _diff_bwd_pair_impl and _diff_bwd_impl of
+// cenet_tpu/ops/pallas_attention.py; K5 (diff_attention_split_fwd.cu) launches
+// K1's kernel. Two softmax groups share V:
 //   o = w V,  w = P1 - lam P2,  P_g = exp(q_g k_g^T - lse_g),  q pre-scaled;
 //   with G = dO V^T:  delta_g = rowsum(P_g G),  ds_g = P_g (G - delta_g),
 //   dq_g = c_g round(ds_g) k_g,  dk_g = c_g round(ds_g)^T q_g  (c_1 = 1, c_2 = -lam),
-//   dv = round(P1 - lam P2)^T dO.
+//   dv = round(P1 - lam P2)^T dO  (K3), or
+//   dv = round(P1)^T dO - lam round(P2)^T dO  (K7, SPLIT_DV: two products into
+//        two fp32 accumulators, combined once at the end, as _diff_dkv_kernel).
 // Every product is mma.sync.m16n8k16 (bf16 operands, fp32 sums) on the tiles,
 // fragments and pipeline of attention_tc.cuh (K2, K4), which these kernels
 // reuse. Each group reads its q and k through an Operand of its own (base
@@ -56,8 +60,10 @@
 //   diff_bwd_dkv_tc_kernel  keys; K1, K2, V in registers; streams Q1, Q2, dO
 //                           and each query row's lse_g, delta_g: S_g^T = K_g Q_g^T,
 //                           G^T = V dO^T, dk_g += round(ds_g^T) Q_g,
-//                           dv += round(P1^T - lam P2^T) dO. Working on the
-//                           transposes keeps every A operand in registers.
+//                           dv += round(P1^T - lam P2^T) dO, or with SPLIT_DV
+//                           dv_g += round(P_g^T) dO and dv = dv_1 - lam dv_2.
+//                           Working on the transposes keeps every A operand
+//                           in registers.
 // The dq and dkv kernels run one after the other on the caller's stream (the
 // dkv kernel reads delta_g) and every output element is written by one block:
 // no atomics, and repeat runs are bit-identical.
@@ -380,7 +386,7 @@ __global__ void __launch_bounds__(C::THREADS) diff_bwd_dq_tc_kernel(const DiffBw
   }
 }
 
-template <int KD, int KV, class C>
+template <int KD, int KV, class C, bool SPLIT_DV>
 __global__ void __launch_bounds__(C::THREADS) diff_bwd_dkv_tc_kernel(const DiffBwdArgs p) {
   constexpr int PD = pitch(KD), PV = pitch(KV), BM = C::BM, BN = C::BS, NT = C::THREADS, NB = BN / 8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -423,7 +429,7 @@ __global__ void __launch_bounds__(C::THREADS) diff_bwd_dkv_tc_kernel(const DiffB
   for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
   uint32_t ka[2][KD][4], va[KV][4];
-  float dk[2][2 * KD][4] = {}, dv[2 * KV][4] = {};
+  float dk[2][2 * KD][4] = {}, dv[2 * KV][4] = {}, dv2[2 * KV][4] = {};  // dv2: SPLIT_DV only
   for (int s = 0; s < T; ++s) {
     cp_async_wait<STAGES - 2>();  // query tile s has landed
     __syncthreads();              // ... for every thread, and tile s - 1's buffers are free
@@ -436,11 +442,11 @@ __global__ void __launch_bounds__(C::THREADS) diff_bwd_dkv_tc_kernel(const DiffB
     const int buf = s % STAGES, n0 = s * BN;
     const bf16* Ob = Os + buf * BN * PV;
     const float* Sb = Ss + 4 * buf * BN;
-    float st[2][NB][4] = {}, gt[NB][4] = {};
+    float st[2][NB][4] = {}, gt[NB][4] = {}, p2t[NB][4];
 #pragma unroll
     for (int gr = 0; gr < 2; ++gr) mma_nk<KD, NB>(st[gr], ka[gr], Qs + (2 * buf + gr) * BN * PD, PD);  // S_g^T
     mma_nk<KV, NB>(gt, va, Ob, PV);  // G^T = V dO^T
-    uint32_t wa[NB / 2][4], dsa[2][NB / 2][4];
+    uint32_t wa[NB / 2][4], wa2[NB / 2][4], dsa[2][NB / 2][4];
     const int live = N - n0 - 2 * t;  // query rows past N (ragged last tile only) get P = 0
     auto grads = [&](auto masked) {
 #pragma unroll
@@ -456,15 +462,22 @@ __global__ void __launch_bounds__(C::THREADS) diff_bwd_dkv_tc_kernel(const DiffB
             const float gv = gt[nb][j];
             st[0][nb][j] = p1 * (gv - d1);  // ds_1^T
             st[1][nb][j] = p2 * (gv - d2);  // ds_2^T
-            gt[nb][j] = fmaf(-lam, p2, p1);  // w^T
+            if constexpr (SPLIT_DV) {
+              gt[nb][j] = p1;  // P1^T
+              p2t[nb][j] = p2;  // P2^T
+            } else {
+              gt[nb][j] = fmaf(-lam, p2, p1);  // w^T
+            }
           }
         }
       acc_to_a<NB / 2>(wa, gt);
+      if constexpr (SPLIT_DV) acc_to_a<NB / 2>(wa2, p2t);
       acc_to_a<NB / 2>(dsa[0], st[0]);
       acc_to_a<NB / 2>(dsa[1], st[1]);
     };
     if (n0 + BN <= N) grads(std::false_type{}); else grads(std::true_type{});
     mma_kn<NB / 2, 2 * KV>(dv, wa, Ob, PV);
+    if constexpr (SPLIT_DV) mma_kn<NB / 2, 2 * KV>(dv2, wa2, Ob, PV);
 #pragma unroll
     for (int gr = 0; gr < 2; ++gr) mma_kn<NB / 2, 2 * KD>(dk[gr], dsa[gr], Qs + (2 * buf + gr) * BN * PD, PD);
   }
@@ -473,6 +486,12 @@ __global__ void __launch_bounds__(C::THREADS) diff_bwd_dkv_tc_kernel(const DiffB
 
   // c_g dk_g and dv through K's and V's buffers (free now)
   scale_acc<2 * KD>(dk[1], -lam);
+  if constexpr (SPLIT_DV) {
+#pragma unroll
+    for (int nb = 0; nb < 2 * KV; ++nb)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dv[nb][j] -= lam * dv2[nb][j];
+  }
   const float one[2] = {1.f, 1.f};
 #pragma unroll
   for (int gr = 0; gr < 2; ++gr) acc_to_smem<2 * KD>(Ks + gr * BM * PD, PD, w0, dk[gr], one);
@@ -517,7 +536,8 @@ inline int diff_fwd_launch(const DiffFwdArgs& a, int B, cudaStream_t stream) {
 
 // The dq kernel (which writes delta_1, delta_2), then the dkv kernel, on
 // `stream`; returns the first failing launch's cudaError_t (0 on success).
-template <int = 0>
+// SPLIT_DV: K7's dv rounding (each P_g rounded apart), else K3's.
+template <bool SPLIT_DV = false>
 inline int diff_bwd_launch(const DiffBwdArgs& a, int B, cudaStream_t stream) {
   if (!dims_ok(a.N, a.M, a.D, a.DV)) return (int)cudaErrorInvalidValue;
   return with_steps(a.D, a.DV, [&](auto kd, auto kv) {
@@ -525,7 +545,7 @@ inline int diff_bwd_launch(const DiffBwdArgs& a, int B, cudaStream_t stream) {
     const int rc = launch_one<DiffDqTiles>(diff_bwd_dq_tc_kernel<KD, KV, DiffDqTiles>, a.N, a.H, B,
                                            diff_dq_smem<DiffDqTiles>(KD, KV), stream, a);
     if (rc != 0) return rc;
-    return launch_one<DiffDkvTiles>(diff_bwd_dkv_tc_kernel<KD, KV, DiffDkvTiles>, a.M, a.H, B,
+    return launch_one<DiffDkvTiles>(diff_bwd_dkv_tc_kernel<KD, KV, DiffDkvTiles, SPLIT_DV>, a.M, a.H, B,
                                     diff_dkv_smem<DiffDkvTiles>(KD, KV), stream, a);
   });
 }

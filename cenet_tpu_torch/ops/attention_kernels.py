@@ -23,12 +23,13 @@ Mirrors the kernels of ``cenet_tpu/ops/pallas_attention.py``:
   :func:`attention_bwd`'s gradients in one launch (no router calls it), source
   ``csrc/attention_bwd_fused.cu``.
 
-K1–K5 launch one of two hand-written designs by dtype: bf16 runs on the tensor
-cores (``mma.sync`` on bf16 tiles with fp32 sums; ``csrc/attention_tc.cuh`` for
-K2 and K4, ``csrc/diff_attention_tc.cuh`` for K1, K3 and K5, where K5 is K1's
-kernel on the split head views), fp32 on CUDA cores in fp32 FMA
+K1–K5, K7 and K8 launch one of two hand-written designs by dtype: bf16 runs on
+the tensor cores (``mma.sync`` on bf16 tiles with fp32 sums;
+``csrc/attention_tc.cuh`` for K2, K4 and K8, ``csrc/diff_attention_tc.cuh`` for
+K1, K3, K5 and K7, where K5 is K1's kernel on the split head views and K7 K3's
+kernels with its own dv rounding), fp32 on CUDA cores in fp32 FMA
 (``csrc/attention_{fwd,bwd}_common.cuh``), because the tensor cores take fp32
-only as TF32. Both keep the Pallas bodies' rounding points. K6–K8 run on CUDA
+only as TF32. Both keep the Pallas bodies' rounding points. K6 runs on CUDA
 cores in both dtypes.
 
 :class:`DiffAttentionInterleavedFn`, :class:`DiffAttentionFn` and

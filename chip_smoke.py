@@ -6,7 +6,8 @@ Needs one CUDA device and ``nvcc``; imports nothing of JAX. Two main paths
 run, volume inference and training, each on two routes of the DSEB sites'
 diff attention: the interleaved route (K1, K3) the model takes, and the
 split-group route (K5, K6) of ``router.diff_attention_core``, selected here by
-rebinding ``router.diff_attention_interleaved`` (``split_route``). Both paths
+rebinding ``router.diff_attention_interleaved`` (``split_route``); training
+also runs the split route with K7 and K8 in place of K6 and K4. Both paths
 run a third time with K9, K11 and K12 swapped in at their own sites
 (``swapped_ops``: RMSNorm, depthwise and small-channel convolutions, which no
 configuration of either package routes), and a rotary ``MultiheadDiffAttn``
@@ -29,7 +30,8 @@ runs K10. Phases:
    training batch of 8, forward and backward kernels in fp32 and bf16 against
    the twins in slices of 2, the backward's times in bf16, and whether two
    runs on the same inputs are bit-identical (required of every backward that
-   sums without atomics: K3, K4, K7);
+   sums without atomics: K3, K4, K7; of K8 in dk and dv, whose repeat run is
+   also held to the twin);
 3. slice parity: a seeded CENet-b2 (Synapse preset) on 2 slices at 224², fp32
    on the card (kernels routed) against fp32 on the CPU (twins), then bf16;
    3b. train-step parity: one fp32 forward/backward of the same model in train
@@ -46,8 +48,9 @@ runs K10. Phases:
    seeded synthetic CT cases (64 × 512 × 512, labels 0–8), with the kernel
    launch counts of that run;
    4b. the split route's volume path: one bf16 chunk through ``make_predict_fn``
-   and one synthetic case through ``VolumeInferencer`` on both routes, with
-   the split run's launch counts and slices/s, and the interleaved chunk's
+   on both routes, required equal to the bit (K5 launches K1's kernel), and
+   one synthetic case through ``VolumeInferencer`` on both routes, with the
+   split run's launch counts and slices/s, and the interleaved chunk's
    distance from the same chunk with K1's twin at the DSEB sites (measured
    only);
    4c. the same with K9, K11 and K12 swapped in (fp32 and bf16 chunks);
@@ -68,6 +71,11 @@ runs K10. Phases:
    K5 on K1's tensor-core kernel and K6's CUDA-core kernel, and no K3;
    7c. the same as phase 6's steps with K9, K11 and K12 swapped in, profiled
    with phase 7's designs;
+   7d. phase 7b with K7 and K8 swapped in for K6 and K4
+   (``split_route(swap_backwards=True)``): step ms, launch counts, and one
+   profiled step, which must show K7's tensor-core kernels (K3's dq kernel
+   and the dk/dv kernel with split dv rounding) and K8's fused tensor-core
+   kernel exactly as counted, and no CUDA-core instance of either;
 8. the rotary path: ``MultiheadDiffAttn(use_rotary=True)`` at DSEB1's width,
    batch 8, with K10 for its interleaved rotary, against the plain module.
 
@@ -216,14 +224,16 @@ BWD_KERNELS = {
         replaces=f"{PALLAS}:545 (_diff_bwd_onekernel_impl)", path="train-split"),
     "diff_attention_bwd_split": dict(
         k="K7", source="cenet_tpu_torch/csrc/diff_attention_split_bwd_two_kernel.cu", fwd="diff_attention_fwd",
-        replaces=f"{PALLAS}:609 (_diff_bwd_impl)", path="train-split (swapped)"),
+        replaces=f"{PALLAS}:609 (_diff_bwd_impl)", path="train-split, K7 and K8"),
     "attention_bwd_fused": dict(
         k="K8", source="cenet_tpu_torch/csrc/attention_bwd_fused.cu", fwd="attention_fwd",
-        replaces=f"{PALLAS}:212 (_pallas_attention_bwd_fused_impl)", path="train-split (swapped)"),
+        replaces=f"{PALLAS}:212 (_pallas_attention_bwd_fused_impl)", path="train-split, K7 and K8"),
 }
 SPLIT_BWD = ("diff_attention_bwd", "diff_attention_bwd_split")
 # backwards that write each gradient element from one block (K6 and K8 sum with atomics)
 NO_ATOMICS_BWD = ("diff_attention_interleaved_bwd", "attention_bwd", "diff_attention_bwd_split")
+# the gradients an atomic backward still writes from one block: K8's dk and dv
+REPEAT_EXACT = {"attention_bwd_fused": ("dk", "dv")}
 DIFF_BWD = ("diff_attention_interleaved_bwd", *SPLIT_BWD)  # these also give dλ
 # launches per 32-slice chunk on each route (every kernel not listed: none)
 VOLUME_PER_CHUNK = {"interleaved": {"diff_attention_interleaved_fwd": 3, "attention_fwd": 2},
@@ -648,6 +658,13 @@ def phase_bwd_kernels(exp_rate):
                                            for g, a, b in zip((*grad_names(kernel), "dlam"), first, again)}
             check(kernel not in NO_ATOMICS_BWD or all(row["repeat_bit_identical"].values()),
                   f"{kernel} at {site}: two runs on the same inputs differ: {row['repeat_bit_identical']}")
+            if kernel in REPEAT_EXACT:
+                exact = REPEAT_EXACT[kernel]
+                check(all(row["repeat_bit_identical"][g] for g in exact),
+                      f"{kernel} at {site}: {exact} differ between two runs: {row['repeat_bit_identical']}")
+                # the atomically summed gradients of the repeat run: within the twin's limits too
+                again_r = in_slices(bwd_check, kernel, call, again[:len(grad_names(kernel))], f"{where} (repeat)")
+                row.update({f"repeat_{k}": v for k, v in again_r.items()})
             del first, again
             # times on the bf16 inputs of the training batch
             row["ms"] = time_ms(lambda: bwd_kernel_fn(kernel)(*call))
@@ -881,7 +898,7 @@ def phase_split_train_parity(live):
     parameters) within phase 3b's batch-8 limits of kernels against twins (the
     two routes differ in fp32 summation order only: K6's dv sums P₁ᵀdO and
     P₂ᵀdO apart, and adds over query tiles with atomics). Then the same step
-    with K7 and K8 in place of K6 and K4. Returns each run's launch counts."""
+    with K7 and K8 in place of K6 and K4."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     x, y = labelled_slices(11, TRAIN_B, 224)
@@ -890,13 +907,12 @@ def phase_split_train_parity(live):
     card.model.train()
     loss, grads = card.loss_and_grads(x, y)
     names = [n for n, _ in card.model.named_parameters()]
-    launches = {}
     for route, swap in (("split", False), ("split, K7 and K8", True)):
         K.reset_launches()
         with split_route(swap_backwards=swap):
             s_loss, s_grads = card.loss_and_grads(x, y)
         torch.cuda.synchronize()
-        launches[route] = launched = dict(K.LAUNCHES)
+        launched = dict(K.LAUNCHES)
         errs = {n: rel_max(g, w) for n, g, w in zip(names, s_grads, grads) if n in live}
         emit({"phase": "split_train_parity", "route": route, "batch": TRAIN_B, "loss": float(s_loss),
               "loss_interleaved": float(loss), "grad_rel_err_vs_interleaved": summary(errs), "launches": launched})
@@ -910,7 +926,6 @@ def phase_split_train_parity(live):
         del s_grads
     del card, grads
     torch.cuda.empty_cache()
-    return launches
 
 
 def synthetic_case(seed, d=64, h=512, w=512):
@@ -991,11 +1006,13 @@ def twin_route():
 
 def phase_split_volume():
     """The volume path on the split route against the interleaved route: one bf16
-    32-slice chunk through ``make_predict_fn`` (probabilities within phase 3's
-    1e-3, argmax agreement ≥ 99.9%), and how far the interleaved chunk lies from
-    the same chunk with the DSEB sites through K1's twin (measured only: the
-    chunk's sensitivity to bf16 roundings that go the other way at those
-    sites); then a synthetic 64-slice case through
+    32-slice chunk through ``make_predict_fn``, required equal to the bit
+    (probabilities and argmax: K5 launches K1's kernel on the split head views,
+    so the two routes are one computation), and how far the interleaved chunk
+    lies from the same chunk with the DSEB sites through K1's twin (measured
+    only: any other sound bf16 rounding of the DSEB outputs moves this chunk by
+    about 2e-3, so no limit between 0 and that separates a sound run from a
+    faulty one); then a synthetic 64-slice case through
     ``VolumeInferencer`` on each route in turns (interleaved, split, split,
     interleaved): labels agreeing on ≥ 99.9% of voxels, slices/s of each route,
     and the launch counts of one split run. Returns those counts."""
@@ -1034,7 +1051,10 @@ def phase_split_volume():
           "case_label_agree": label_agree, "slices": int(image.shape[0]), "chunks": chunks,
           "slices_per_s": {r: [image.shape[0] / t for t in ts] for r, ts in seconds.items()},
           "launches_split": split_launches})
-    check(diff <= 1e-3 and agree >= 0.999, f"split volume: chunk probabilities off by {diff}, argmax agreement {agree}")
+    check(diff == 0.0 and agree == 1.0,
+          f"split volume: the split route's bf16 chunk differs from the interleaved one (max abs {diff}, argmax "
+          f"agreement {agree}); K5 launches K1's kernel, so they must be equal to the bit (any other sound bf16 "
+          f"rounding of the DSEB outputs moves this chunk by about 2e-3, the twin route here by {twin_diff})")
     check(label_agree >= 0.999, f"split volume: labels agree on {label_agree} of the case")
     del model
     torch.cuda.empty_cache()
@@ -1042,17 +1062,21 @@ def phase_split_volume():
 
 
 # The attention kernels by their symbols: the tensor-core designs that bf16
-# calls launch, K2's and K4's (csrc/attention_tc.cuh) and K1's, K5's and K3's
-# (csrc/diff_attention_tc.cuh); the CUDA-core instances of
-# csrc/attention_{fwd,bwd}_common.cuh (the forward's first template argument is
-# GROUPS, the backward's the dtype), GROUPS = 1 (K2, K4 in fp32; K8) and
-# GROUPS = 2 (K1, K3, K5 in fp32; K7; K6, the one-launch backward)
+# calls launch, K2's, K4's and K8's (csrc/attention_tc.cuh) and K1's, K5's,
+# K3's and K7's (csrc/diff_attention_tc.cuh; K7 runs K3's dq kernel and the
+# dk/dv kernel whose last template argument, SPLIT_DV, is true); the CUDA-core
+# instances of csrc/attention_{fwd,bwd}_common.cuh (the forward's first
+# template argument is GROUPS, the backward's the dtype), GROUPS = 1 (K2, K4
+# and K8 in fp32) and GROUPS = 2 (K1, K3, K5 and K7 in fp32; K6, the
+# one-launch backward)
 ATTN_KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attention_bwd_dq_tc_kernel<",
                        "bwd_dkv_tc": r"attention_bwd_dkv_tc_kernel<",
+                       "bwd_fused_tc": r"attention_bwd_fused_tc_kernel<",
                        "fwd_cuda_core": r"attention_fwd_kernel<1,",
                        "bwd_cuda_core": r"attention_bwd_(dq|dkv)_kernel<[^,<>]+, 1,",
                        "diff_fwd_tc": r"diff_fwd_tc_kernel<", "diff_bwd_dq_tc": r"diff_bwd_dq_tc_kernel<",
-                       "diff_bwd_dkv_tc": r"diff_bwd_dkv_tc_kernel<",
+                       "diff_bwd_dkv_tc": r"diff_bwd_dkv_tc_kernel<.*, false>",
+                       "diff_bwd_dkv_split_tc": r"diff_bwd_dkv_tc_kernel<.*, true>",
                        "diff_fwd_cuda_core": r"attention_fwd_kernel<2,",
                        "diff_bwd_cuda_core": r"attention_bwd_(dq_kernel<[^,<>]+, 2, \d+, false>|dkv_kernel<[^,<>]+, 2,)",
                        "diff_bwd_one_launch": r"attention_bwd_dq_kernel<[^,<>]+, 2, \d+, true>"}
@@ -1060,7 +1084,9 @@ ATTN_KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"att
 BF16_DESIGNS = {"attention_fwd": ("fwd_tc",), "attention_bwd": ("bwd_dq_tc", "bwd_dkv_tc"),
                 "diff_attention_interleaved_fwd": ("diff_fwd_tc",),
                 "diff_attention_interleaved_bwd": ("diff_bwd_dq_tc", "diff_bwd_dkv_tc"),
-                "diff_attention_fwd": ("diff_fwd_tc",), "diff_attention_bwd": ("diff_bwd_one_launch",)}
+                "diff_attention_fwd": ("diff_fwd_tc",), "diff_attention_bwd": ("diff_bwd_one_launch",),
+                "diff_attention_bwd_split": ("diff_bwd_dq_tc", "diff_bwd_dkv_split_tc"),
+                "attention_bwd_fused": ("bwd_fused_tc",)}
 
 
 def attention_designs(kernels):
@@ -1230,13 +1256,17 @@ def phase_train_profile(trainer, images, labels):
     check_designs(prof["attention_designs"], TRAIN_PER_STEP["interleaved"], "bf16 train step profile")
 
 
-def phase_split_train(trainer, images, labels, steps=10):
+def phase_split_train(trainer, images, labels, steps=10, swap_backwards=False):
     """Phase 6's bf16 trainer on its resident batch, on the split route: the
     step's ms over ``steps`` steps (CUDA events), their launch counts, and one
-    profiled step (K5 and K6 device ms, the head-view gradient scatter) beside
-    phase 7's, which must show K5 on K1's tensor-core kernel and K6's
-    CUDA-core kernel. Returns the launch counts."""
-    with split_route():
+    profiled step (the attention kernels' device ms, the head-view gradient
+    scatter) beside phase 7's, which must show every attention design exactly
+    as the launch counts say: K5 on K1's tensor-core kernel and K6's CUDA-core
+    kernel (phase 7b), or with ``swap_backwards`` K7's and K8's tensor-core
+    kernels and no CUDA-core instance of either (phase 7d). Returns the launch
+    counts."""
+    route = "split, K7 and K8" if swap_backwards else "split"
+    with split_route(swap_backwards=swap_backwards):
         trainer.train_step(images, labels)  # warm-up
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1248,10 +1278,10 @@ def phase_split_train(trainer, images, labels, steps=10):
         torch.cuda.synchronize()
         launched = dict(K.LAUNCHES)
         prof = profile_step(trainer, images, labels)
-    emit({"phase": "split_train", "steps": steps, "resident_step_ms": start.elapsed_time(end) / steps,
-          "launches": launched, "profile": prof})
-    check_launches(launched, TRAIN_PER_STEP["split"], steps, f"split train, {steps} steps")
-    check_designs(prof["attention_designs"], TRAIN_PER_STEP["split"], "split bf16 train step profile")
+    emit({"phase": "split_train", "route": route, "steps": steps,
+          "resident_step_ms": start.elapsed_time(end) / steps, "launches": launched, "profile": prof})
+    check_launches(launched, TRAIN_PER_STEP[route], steps, f"split train ({route}), {steps} steps")
+    check_designs(prof["attention_designs"], TRAIN_PER_STEP[route], f"split bf16 train step profile ({route})")
     return launched
 
 
@@ -1789,15 +1819,15 @@ def main():
     swap_rows, swap_errs = phase_swap_kernels()
     phase_slice_parity()
     live, _ = phase_train_parity()
-    split_train_launches = phase_split_train_parity(live)
+    phase_split_train_parity(live)
     launches = {"volume": phase_volume(), "volume-split": phase_split_volume(),
                 "volume-swapped": phase_swapped_volume()}
     phase_profile()
     launches["train"], trainer, images, labels = phase_train()
     phase_train_profile(trainer, images, labels)
     launches["train-split"] = phase_split_train(trainer, images, labels)
-    launches["train-split (swapped)"] = split_train_launches["split, K7 and K8"]
     launches["train-swapped"] = phase_swapped_train(trainer, images, labels)
+    launches["train-split, K7 and K8"] = phase_split_train(trainer, images, labels, swap_backwards=True)
     launches["rotary"], rotary_row = phase_rotary()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
 

@@ -2,11 +2,13 @@
 
 Forward kernels (K1, K2, K5) on ``o`` and the LSE; backward kernels (K3, K4,
 K6, K7, K8) on their gradients and, for the diff kernels, dλ, with the limits
-of ``chip_smoke.py``. K1–K5 run on the tensor cores in bf16 and on CUDA cores
-in fp32 (K5 is K1's kernel on split views), so their shapes include the edges of 64-row tiles and of 16-deep
-steps (N, M of 1, 63, 65, 196, 784 and 3136; d of 8, 16, 20 with dv = 2d, and
-d = dv = 128), the strided views that the DSEB projections and ``Nonlocal``
-hand over, and bit-identity checks of K1, K3 (δ and dλ included) and K4. Limits in max-abs
+of ``chip_smoke.py``. K1–K5, K7 and K8 run on the tensor cores in bf16 and on
+CUDA cores in fp32 (K5 is K1's kernel on split views, K7 K3's kernels with
+its own dv rounding), so their shapes include the edges of 64-row tiles and
+of 16-deep steps (N, M of 1, 63, 65, 196, 784 and 3136; d of 8, 16, 20 with
+dv = 2d, and d = dv = 64 and 128), the strided views that the DSEB
+projections and ``Nonlocal`` hand over, and bit-identity checks of K1, K3 and
+K7 (δ and dλ included), K4, and K8's dk and dv. Limits in max-abs
 and in norm: fp32 1e-4 of max |grad| and 1e-5 in norm (only the order of
 summation differs); bf16 two bf16 half-ulps of max |grad| (2·2^-8 in norm) plus
 the twin's own cost of rounding ds and p (or w) to bf16, measured the same way.
@@ -444,6 +446,126 @@ def test_cuda_split_function_matches_cpu(cuda):
         grads.append([t.grad.cpu() for t in (q, k, v, lam)])
     for a, w in zip(grads[1], grads[0]):
         assert (a - w).abs().max() <= 1e-4 * max(1.0, float(w.abs().max()))
+
+
+# (b, h, n, m, d, dv): the tile edges of the tensor-core K7 (K3's kernels) and
+# K8 (K4's dk/dv tiles), N of 1, 63, 65, 196, 784 and M of 63, 65, 196, 784,
+# every B·h > 1. Not M = 1: one key gives P = 1, so dq and dk vanish
+# identically and a limit relative to them means nothing.
+K7_EDGE_SHAPES = [(2, 2, 1, 63, 8, 16), (1, 2, 63, 65, 8, 16), (2, 1, 65, 63, 16, 32), (1, 2, 196, 196, 20, 40),
+                  (2, 2, 784, 65, 16, 32), (1, 2, 65, 784, 8, 16), (2, 1, 196, 65, 20, 40)]
+K8_EDGE_SHAPES = [(2, 1, 1, 65, 64, 64), (1, 2, 63, 65, 64, 64), (2, 1, 65, 63, 128, 128), (1, 2, 196, 196, 64, 64),
+                  (2, 2, 784, 65, 64, 64), (2, 1, 65, 784, 128, 128), (1, 2, 196, 63, 128, 128),
+                  (2, 1, 784, 784, 64, 64)]
+
+
+@pytest.mark.cuda
+def test_cuda_k7_k8_bf16_tile_edges_match_twins(cuda):
+    """K7 and K8 in bf16 (the tensor-core designs) at the tile edges, against
+    their twins with the limits above: K7 on strided head views and a strided
+    dO, its five gradients and dλ; K8 on its three gradients."""
+    g = torch.Generator().manual_seed(10)
+    lam = torch.tensor(0.37, device=cuda)
+    for b, h, n, m, d, dv in K7_EDGE_SHAPES:
+        _, _, v, do, groups = _split_inputs(g, b, h, n, m, d, dv, torch.bfloat16, cuda)
+        _, lse1, lse2 = K.diff_attention_fwd_plain(*(t.float() for t in groups), v.float(), lam)
+        want, want_r = _split_refs(groups, v, lam, lse1, lse2, do)
+        got = K.diff_attention_bwd_split(*groups, v, lam, lse1, lse2, do)
+        torch.cuda.synchronize()
+        _assert_split_grads(got, want, want_r, torch.bfloat16, ("K7", b, h, n, m, d, dv))
+    for b, h, n, m, d, dv in K8_EDGE_SHAPES:
+        q = (torch.randn(b, h, n, d, generator=g) * d**-0.5).to(cuda, torch.bfloat16)
+        k = torch.randn(b, h, m, d, generator=g).to(cuda, torch.bfloat16)
+        v = torch.randn(b, h, m, dv, generator=g).to(cuda, torch.bfloat16)
+        do = torch.randn(b, h, n, dv, generator=g).to(cuda, torch.bfloat16)
+        f = [t.float() for t in (q, k, v, do)]
+        o, lse = K.attention_fwd_plain(f[0], f[1], f[2])
+        o = o.bfloat16()
+        got = K.attention_bwd_fused(q, k, v, o, lse, do)
+        want = K.attention_bwd_plain(f[0], f[1], f[2], o.float(), lse, f[3])
+        want_r = (K.attention_bwd_plain(f[0], k, f[2], o, lse, do)[0],
+                  K.attention_bwd_plain(q, f[1], f[2], o, lse, do)[1],
+                  K.attention_bwd_plain(f[0], f[1], f[2], o, lse, do)[2])
+        torch.cuda.synchronize()
+        _assert_grads(got, want, want_r, torch.bfloat16, ("K8", b, h, n, m, d, dv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_split_backward_takes_dseb_views(cuda, dtype):
+    """K7 on the split head views of the DSEB projections (``q[:, 0::2]`` …
+    ``k[:, 1::2]`` of (B, N, 2h, d) views; d = 8, 16, 20, so group 2 starts d
+    elements in and d = 20's 40-byte rows are staged by element loads) and a
+    strided dO, against the twin on contiguous copies."""
+    g = torch.Generator().manual_seed(11)
+    lam = torch.tensor(0.37, device=cuda)
+    for b, n, h, d in [(2, 150, 4, 20), (1, 196, 8, 8), (2, 65, 2, 16), (1, 784, 8, 16)]:
+        q, k, v, do = _dseb_views(g, b, n, h, d, dtype, cuda)
+        groups = (q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2])
+        _, lse1, lse2 = K.diff_attention_fwd_plain(*(t.float() for t in groups), v.float(), lam)
+        got = K.diff_attention_bwd_split(*groups, v, lam, lse1, lse2, do)
+        want, want_r = _split_refs([t.contiguous() for t in groups], v.contiguous(), lam, lse1, lse2,
+                                   do.contiguous())
+        torch.cuda.synchronize()
+        _assert_split_grads(got, want, want_r, dtype, ("K7 DSEB views", b, n, h, d))
+
+
+def _split_bwd_with_deltas(groups, v, lam, lse1, lse2, do):
+    """K7's C entry as ``diff_attention_bwd_split`` calls it, returning the
+    per-row δ₁, δ₂ that its dq kernel writes besides the five gradients."""
+    from cenet_tpu_torch.ops import binding
+
+    q1, k1, q2, k2 = groups
+    b, h, n, d = q1.shape
+    m, dv = k1.shape[2], v.shape[3]
+    d1, d2 = (torch.empty((b, h, n), dtype=torch.float32, device=q1.device) for _ in range(2))
+    dq1, dk1, dq2, dk2, dvv = (torch.empty(shape, dtype=q1.dtype, device=q1.device)
+                               for shape in ((b, h, n, d), (b, h, m, d), (b, h, n, d), (b, h, m, d), (b, h, m, dv)))
+    rc = K._kernel("diff_attention_split_bwd_two_kernel", "cenet_diff_attention_split_bwd_two_kernel")(
+        binding.is_bf16(q1), *binding.ptrs(q1, k1, q2, k2, v, do, lam, lse1, lse2, d1, d2, dq1, dk1, dq2, dk2, dvv),
+        b, h, n, m, d, dv, *binding.strides(q1), *binding.strides(k1), *binding.strides(q2), *binding.strides(k2),
+        *binding.strides(v), *binding.strides(do), binding.stream())
+    binding.raise_on("diff_attention_bwd_split", rc)
+    return dq1, dk1, dq2, dk2, dvv, d1, d2
+
+
+@pytest.mark.cuda
+def test_cuda_split_backward_repeats_bit_identical(cuda):
+    """K7 in bf16 writes each output element from one block (no atomics): two
+    runs on the same inputs give the same bits in dq₁, dq₂, dk₁, dk₂, dv, the
+    per-row δ₁, δ₂ and dλ, at the DSEB1 and DSEB2 head dims."""
+    g = torch.Generator().manual_seed(12)
+    lam = torch.tensor(0.37, device=cuda)
+    for b, n, h, d in [(2, 3136, 8, 8), (2, 784, 8, 16)]:
+        q, k, v, do = _dseb_views(g, b, n, h, d, torch.bfloat16, cuda)
+        groups = (q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2])
+        _, lse1, lse2 = K.diff_attention_fwd(*groups, v, lam)
+        grads = [K.diff_attention_bwd_split(*groups, v, lam, lse1, lse2, do) for _ in range(2)]
+        deltas = [_split_bwd_with_deltas(groups, v, lam, lse1, lse2, do) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b_ in zip((*grads[0], *deltas[0]), (*grads[1], *deltas[1])):
+            assert torch.equal(a, b_), (b, n, h, d)
+        assert torch.equal(grads[0][5], -deltas[0][6].sum())
+
+
+@pytest.mark.cuda
+def test_cuda_fused_attention_backward_repeats_dk_dv(cuda):
+    """K8 in bf16 writes dk and dv from one block each, so two runs on the same
+    inputs give the same bits there; dq sums over key tiles with atomics and
+    stays within the twin's limits in both runs."""
+    g = torch.Generator().manual_seed(13)
+    q, k, v, do = _token_views(g, 2, 1, 3136, 64, torch.bfloat16, cuda)
+    o, lse = K.attention_fwd(q, k, v)
+    runs = [K.attention_bwd_fused(q, k, v, o, lse, do) for _ in range(2)]
+    f = [t.float().contiguous() for t in (q, k, v, do)]
+    want = K.attention_bwd_plain(f[0], f[1], f[2], o.float(), lse, f[3])
+    want_r = (K.attention_bwd_plain(f[0], k, f[2], o, lse, do)[0],
+              K.attention_bwd_plain(q, f[1], f[2], o, lse, do)[1],
+              K.attention_bwd_plain(f[0], f[1], f[2], o, lse, do)[2])
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][1], runs[1][1]) and torch.equal(runs[0][2], runs[1][2])
+    for run in runs:
+        _assert_grads(run, want, want_r, torch.bfloat16, "K8 repeat")
 
 
 def _assert_close(got, want, dtype, where, fp32_rel=1e-4, norm=1e-5):
