@@ -1,17 +1,19 @@
 // Differential attention forward and backward on Hopper's tensor cores, bf16
 // (sm_90a).
 //
-// The bf16 designs of K1 (diff_attention_fwd.cu), K3 (diff_attention_bwd.cu)
-// and K7 (diff_attention_split_bwd_two_kernel.cu), which replace
-// _diff_fwd_pair_impl, _diff_bwd_pair_impl and _diff_bwd_impl of
+// The bf16 designs of K1 (diff_attention_fwd.cu), K3 (diff_attention_bwd.cu),
+// K6 (diff_attention_split_bwd.cu) and K7 (diff_attention_split_bwd_two_kernel.cu),
+// which replace _diff_fwd_pair_impl, _diff_bwd_pair_impl,
+// _diff_bwd_onekernel_impl and _diff_bwd_impl of
 // cenet_tpu/ops/pallas_attention.py; K5 (diff_attention_split_fwd.cu) launches
 // K1's kernel. Two softmax groups share V:
 //   o = w V,  w = P1 - lam P2,  P_g = exp(q_g k_g^T - lse_g),  q pre-scaled;
 //   with G = dO V^T:  delta_g = rowsum(P_g G),  ds_g = P_g (G - delta_g),
 //   dq_g = c_g round(ds_g) k_g,  dk_g = c_g round(ds_g)^T q_g  (c_1 = 1, c_2 = -lam),
 //   dv = round(P1 - lam P2)^T dO  (K3), or
-//   dv = round(P1)^T dO - lam round(P2)^T dO  (K7, SPLIT_DV: two products into
-//        two fp32 accumulators, combined once at the end, as _diff_dkv_kernel).
+//   dv = round(P1)^T dO - lam round(P2)^T dO  (K6, and K7 with SPLIT_DV: two
+//        products into two fp32 accumulators, combined in fp32, as
+//        _diff_bwd_onekernel and _diff_dkv_kernel).
 // Every product is mma.sync.m16n8k16 (bf16 operands, fp32 sums) on the tiles,
 // fragments and pipeline of attention_tc.cuh (K2, K4), which these kernels
 // reuse. Each group reads its q and k through an Operand of its own (base
@@ -64,9 +66,22 @@
 //                           dv_g += round(P_g^T) dO and dv = dv_1 - lam dv_2.
 //                           Working on the transposes keeps every A operand
 //                           in registers.
+//   diff_bwd_one_tc_kernel  K6, one launch: the dq kernel whose pass 2 also
+//                           writes round(ds_g) and round(P_g) of each key tile
+//                           to shared [query][key] tiles; after one barrier
+//                           each warp reads them back transposed (ldmatrix
+//                           .trans) for 16 keys of the tile and forms their
+//                           dk_g = c_g round(ds_g)^T Q_g and
+//                           dv = round(P1)^T dO - lam round(P2)^T dO over the
+//                           block's query rows (Q_g, dO stay in shared memory
+//                           as B operands), added into the caller's zeroed fp32
+//                           dk_g, dv with 16-byte red.global.add.v4.f32
+//                           (red_add_rows). Two passes over the keys, not three.
 // The dq and dkv kernels run one after the other on the caller's stream (the
 // dkv kernel reads delta_g) and every output element is written by one block:
-// no atomics, and repeat runs are bit-identical.
+// no atomics, and repeat runs are bit-identical. K6's dq and delta are written
+// the same way and repeat exactly; its dk and dv sum across query blocks in no
+// fixed order, so repeat runs differ in their last bits.
 //
 // Edges as in attention_tc.cuh: any N, M >= 1; d, dv <= 128 zero-padded to
 // 16-deep steps; rows past N or M staged as zeros; masked keys (or query rows)
@@ -110,6 +125,8 @@ struct DiffBwdArgs {
   bf16* dv;             // (B, H, M, DV) contiguous
   int H, N, M, D, DV;
   int vec_dv;
+  float* dk_acc[2];     // K6: fp32 (B, H, M, D), zeroed by the caller (dk, dv unused)
+  float* dv_acc;        // K6: fp32 (B, H, M, DV), zeroed by the caller
 };
 
 constexpr float NO_KEY = -1e30f;  // a lane's running max before it has seen a key
@@ -505,6 +522,194 @@ __global__ void __launch_bounds__(C::THREADS) diff_bwd_dkv_tc_kernel(const DiffB
   store_tile<NT, BM, 2 * KV>(Vs, PV, p.dv + bh * M * p.DV, k0, M, p.DV, p.vec_dv);
 }
 
+// K6's one launch. The dq kernel's two passes over the keys; in pass 2 each
+// warp also writes round(ds_g) (the bits of its A fragments, so dq and dk use
+// one rounded ds) and round(P_g) of its 16 query rows to the shared tiles Ts,
+// passes one barrier, and takes its share of the key tile's dk_g and dv
+// partials over the block's BM query rows: with NW = BK / 16 warps, warp w all
+// of keys 16w .. 16w+15; with NW = 2 BK / 16, warps w < BK / 16 the dk_g of
+// those keys and warps w >= BK / 16 the dv of keys 16 (w - BK / 16) .. . The
+// loop-top barrier orders the next tile's writes after every read.
+template <int KD, int KV, class C>
+__global__ void __launch_bounds__(C::THREADS) diff_bwd_one_tc_kernel(const DiffBwdArgs p) {
+  constexpr int PD = pitch(KD), PV = pitch(KV), BM = C::BM, BK = C::BS, NT = C::THREADS, NB = BK / 8;
+  constexpr int R = BK / 16, KS = BM / 16;  // 16-key blocks of a key tile; 16-query steps of the block
+  constexpr int PS = pitch(R);              // the Ts tiles' pitch: stores and ldmatrix rows on distinct banks
+  static_assert(C::NW == R || C::NW == 2 * R, "one warp, or a dk and a dv warp, for each 16 keys");
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);  // [2][BM][PD]
+  bf16* Os = Qs + 2 * BM * PD;                   // [BM][PV]   dO
+  bf16* Ks = Os + BM * PV;                       // [STAGES][2][BK][PD]
+  bf16* Vs = Ks + STAGES * 2 * BK * PD;          // [STAGES][BK][PV]
+  bf16* Ts = Vs + STAGES * BK * PV;              // [4][BM][PS]   round(ds_1), round(ds_2), round(P_1), round(P_2)
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM, w0 = warp * 16;
+  const int N = p.N, M = p.M, T = (M + BK - 1) / BK;
+  const long long bh = (long long)b * p.H + h;
+  const bf16* kg[2] = {p.k[0].ptr + b * p.k[0].sb + h * p.k[0].sh, p.k[1].ptr + b * p.k[1].sb + h * p.k[1].sh};
+  const bf16* vg = p.v.ptr + b * p.v.sb + h * p.v.sh;
+  const float lam = *p.lam;
+
+  // step s < T: pass 1 over key tile s; s >= T: pass 2 over key tile s - T.
+  // Both read K1, K2 and V. One commit group per step, empty past the last.
+  auto issue = [&](int s) {
+    if (s < 2 * T) {
+      const int buf = s % STAGES, k0 = (s < T ? s : s - T) * BK;
+#pragma unroll
+      for (int gr = 0; gr < 2; ++gr)
+        load_tile<NT, BK, 2 * KD>(Ks + (2 * buf + gr) * BK * PD, PD, kg[gr], p.k[gr].sn, k0, M, p.D, p.k[gr].vec);
+      load_tile<NT, BK, 2 * KV>(Vs + buf * BK * PV, PV, vg, p.v.sn, k0, M, p.DV, p.v.vec);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int gr = 0; gr < 2; ++gr)
+    load_tile<NT, BM, 2 * KD>(Qs + gr * BM * PD, PD, p.q[gr].ptr + b * p.q[gr].sb + h * p.q[gr].sh, p.q[gr].sn, q0,
+                              N, p.D, p.q[gr].vec);
+  load_tile<NT, BM, 2 * KV>(Os, PV, p.dout.ptr + b * p.dout.sb + h * p.dout.sh, p.dout.sn, q0, N, p.DV, p.dout.vec);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+  // per group, rows g and g + 8 of the warp: lse log2 e (+inf past N, so that
+  // those rows get P = ds = 0 and add nothing to dk and dv), and delta (this
+  // lane's share in pass 1, the row's from the end of pass 1)
+  float lse[2][2], delta[2][2];
+#pragma unroll
+  for (int gr = 0; gr < 2; ++gr)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = q0 + w0 + g + 8 * i;
+      lse[gr][i] = n < N ? p.lse[gr][bh * N + n] * LOG2E : INFINITY;
+      delta[gr][i] = 0.f;
+    }
+
+  uint32_t qa[2][KD][4], da[KV][4];
+  float dq[2][2 * KD][4] = {};
+  for (int s = 0; s < 2 * T; ++s) {
+    cp_async_wait<STAGES - 2>();  // step s's tiles have landed
+    __syncthreads();              // ... for every thread; step s - 1's buffers and the Ts tiles are free
+    issue(s + STAGES - 1);
+    if (s == 0) {
+      load_a<KD>(qa[0], Qs, PD, w0);
+      load_a<KD>(qa[1], Qs + BM * PD, PD, w0);
+      load_a<KV>(da, Os, PV, w0);
+    }
+    const int buf = s % STAGES, k0 = (s < T ? s : s - T) * BK;
+    float sc[2][NB][4] = {}, gp[NB][4] = {};
+#pragma unroll
+    for (int gr = 0; gr < 2; ++gr) mma_nk<KD, NB>(sc[gr], qa[gr], Ks + (2 * buf + gr) * BK * PD, PD);
+    mma_nk<KV, NB>(gp, da, Vs + buf * BK * PV, PV);  // G = dO V^T
+    const int live = M - k0 - 2 * t;  // keys past M (ragged last tile only) get P = 0
+    const bool full = k0 + BK <= M;
+    if (s < T) {
+      auto deltas = [&](auto masked) {
+#pragma unroll
+        for (int gr = 0; gr < 2; ++gr)
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float pr = ex2(fmaf(sc[gr][nb][j], LOG2E, -lse[gr][j >> 1]));  // exp(s - lse)
+              if (decltype(masked)::value && nb * 8 + (j & 1) >= live) pr = 0.f;
+              delta[gr][j >> 1] = fmaf(pr, gp[nb][j], delta[gr][j >> 1]);
+            }
+      };
+      if (full) deltas(std::false_type{}); else deltas(std::true_type{});
+      if (s == T - 1) {
+#pragma unroll
+        for (int gr = 0; gr < 2; ++gr)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            delta[gr][i] = quad_sum(delta[gr][i]);
+            const int n = q0 + w0 + g + 8 * i;
+            if (t == 0 && n < N) p.delta[gr][bh * N + n] = delta[gr][i];
+          }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int gr = 0; gr < 2; ++gr) {
+      bf16* ds_t = Ts + gr * BM * PS;
+      bf16* p_t = Ts + (2 + gr) * BM * PS;
+      uint32_t dsa[NB / 2][4];
+      auto grads = [&](auto masked) {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          float pr[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            pr[j] = ex2(fmaf(sc[gr][nb][j], LOG2E, -lse[gr][j >> 1]));  // exp(s - lse)
+            if (decltype(masked)::value && nb * 8 + (j & 1) >= live) pr[j] = 0.f;
+            sc[gr][nb][j] = pr[j] * (gp[nb][j] - delta[gr][j >> 1]);  // ds
+          }
+          *reinterpret_cast<uint32_t*>(p_t + (w0 + g) * PS + nb * 8 + 2 * t) = pack_bf16(pr[0], pr[1]);
+          *reinterpret_cast<uint32_t*>(p_t + (w0 + g + 8) * PS + nb * 8 + 2 * t) = pack_bf16(pr[2], pr[3]);
+        }
+        acc_to_a<NB / 2>(dsa, sc[gr]);
+      };
+      if (full) grads(std::false_type{}); else grads(std::true_type{});
+      mma_kn<NB / 2, 2 * KD>(dq[gr], dsa, Ks + (2 * buf + gr) * BK * PD, PD);
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {  // the A fragments' bits: row g, g + 8; columns 16 kk + 2t, + 8
+        uint32_t* r0 = reinterpret_cast<uint32_t*>(ds_t + (w0 + g) * PS + 16 * kk + 2 * t);
+        uint32_t* r8 = reinterpret_cast<uint32_t*>(ds_t + (w0 + g + 8) * PS + 16 * kk + 2 * t);
+        r0[0] = dsa[kk][0];
+        r8[0] = dsa[kk][1];
+        r0[4] = dsa[kk][2];
+        r8[4] = dsa[kk][3];
+      }
+    }
+    __syncthreads();
+    // this warp's 16 keys of the tile: A fragments of round(ds_g)^T or
+    // round(P_g)^T (rows: keys) from a [query][key] tile, transposed by ldmatrix
+    const int kb = warp % R, key0 = k0 + 16 * kb;
+    const int a_off = ((lane & 7) + (lane >> 4) * 8) * PS + 16 * kb + ((lane >> 3) & 1) * 8;
+    auto tile_t = [&](uint32_t (&a)[KS][4], const bf16* tile) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) ldsm_x4_trans(a[kk], tile + a_off + kk * 16 * PS);
+    };
+    if (C::NW == R || warp < R) {
+#pragma unroll
+      for (int gr = 0; gr < 2; ++gr) {
+        uint32_t a[KS][4];
+        tile_t(a, Ts + gr * BM * PS);
+        float part[2 * KD][4] = {};
+        mma_kn<KS, 2 * KD>(part, a, Qs + gr * BM * PD, PD);
+        if (gr == 1) scale_acc<2 * KD>(part, -lam);
+        red_add_rows<2 * KD>(p.dk_acc[gr] + bh * M * p.D, key0, 0, M, p.D, part);
+      }
+    }
+    if (C::NW == R || warp >= R) {
+      uint32_t a[KS][4];
+      float part[2 * KV][4] = {}, part2[2 * KV][4] = {};
+      tile_t(a, Ts + 2 * BM * PS);
+      mma_kn<KS, 2 * KV>(part, a, Os, PV);
+      tile_t(a, Ts + 3 * BM * PS);
+      mma_kn<KS, 2 * KV>(part2, a, Os, PV);
+#pragma unroll
+      for (int nb = 0; nb < 2 * KV; ++nb)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[nb][j] -= lam * part2[nb][j];
+      red_add_rows<2 * KV>(p.dv_acc + bh * M * p.DV, key0, 0, M, p.DV, part);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // c_g dq_g through Q's buffers (free now)
+  scale_acc<2 * KD>(dq[1], -lam);
+  const float one[2] = {1.f, 1.f};
+#pragma unroll
+  for (int gr = 0; gr < 2; ++gr) acc_to_smem<2 * KD>(Qs + gr * BM * PD, PD, w0, dq[gr], one);
+  __syncthreads();
+#pragma unroll
+  for (int gr = 0; gr < 2; ++gr) {
+    const OutRows& o = p.dq[gr];
+    store_tile<NT, BM, 2 * KD>(Qs + gr * BM * PD, PD, o.ptr + b * o.sb + h * o.sh, q0, N, p.D, o.vec);
+  }
+}
+
 template <class C>
 inline size_t diff_fwd_smem(int kd, int kv) {
   return 2 * (2 * C::BM * pitch(kd) + STAGES * C::BS * (2 * pitch(kd) + pitch(kv)));
@@ -514,6 +719,10 @@ inline size_t diff_dq_smem(int kd, int kv) {
   return 2 * (C::BM + STAGES * C::BS) * (2 * pitch(kd) + pitch(kv));
 }
 template <class C>
+inline size_t diff_one_smem(int kd, int kv) {
+  return diff_dq_smem<C>(kd, kv) + 2 * 4 * C::BM * pitch(C::BS / 16);  // and the four Ts tiles
+}
+template <class C>
 inline size_t diff_dkv_smem(int kd, int kv) {
   return 2 * (C::BM + STAGES * C::BS) * (2 * pitch(kd) + pitch(kv)) + 4 * 4 * STAGES * C::BS;
 }
@@ -521,6 +730,9 @@ inline size_t diff_dkv_smem(int kd, int kv) {
 using DiffFwdTiles = Tiles<4, 64>;
 using DiffDqTiles = Tiles<4, 64>;
 using DiffDkvTiles = Tiles<4, 32>;
+// K6: 64 query rows (4 warps) against key tiles of 64 (PERF.md; timed with
+// cenet_tpu_torch/tools/time_tilings.py)
+using DiffOneTiles = Tiles<4, 64>;
 
 // The forward on `stream`; returns the launch's cudaError_t (0 on success).
 // Launchers are templates for the reason given in attention_tc.cuh.
@@ -547,6 +759,17 @@ inline int diff_bwd_launch(const DiffBwdArgs& a, int B, cudaStream_t stream) {
     if (rc != 0) return rc;
     return launch_one<DiffDkvTiles>(diff_bwd_dkv_tc_kernel<KD, KV, DiffDkvTiles, SPLIT_DV>, a.M, a.H, B,
                                     diff_dkv_smem<DiffDkvTiles>(KD, KV), stream, a);
+  });
+}
+
+// K6's one kernel on `stream` (a.dk_acc, a.dv_acc zeroed by the caller), with
+// tiling C; returns the launch's cudaError_t (0 on success).
+template <class C = DiffOneTiles>
+inline int diff_bwd_one_launch(const DiffBwdArgs& a, int B, cudaStream_t stream) {
+  if (!dims_ok(a.N, a.M, a.D, a.DV)) return (int)cudaErrorInvalidValue;
+  return with_steps(a.D, a.DV, [&](auto kd, auto kv) {
+    constexpr int KD = decltype(kd)::value, KV = decltype(kv)::value;
+    return launch_one<C>(diff_bwd_one_tc_kernel<KD, KV, C>, a.N, a.H, B, diff_one_smem<C>(KD, KV), stream, a);
   });
 }
 

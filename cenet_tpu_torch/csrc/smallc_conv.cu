@@ -9,17 +9,36 @@
 // K = 3, 64 -> 32 and 64 -> 64 at 112^2) that is 200-575 FLOPs per byte, above
 // the card's line. The TPU kernel packs taps along the contraction so that
 // 32-lane data fills 128-lane MXU passes; that is MXU lane economics and
-// does not carry over. This is a direct convolution on CUDA cores, the simple
-// first version: a block takes a 16x16 tile of output pixels and 32 output
-// channels; it stages the input patch with its halo (zero outside the map)
-// and the weights of CI input channels at a time in shared memory, and each
-// thread keeps the 32 fp32 sums of one pixel in registers. The weights are
-// read as float4 broadcasts, so each shared-memory read feeds four (weights)
-// or K*K*32/CI (input) multiply-adds.
+// does not carry over.
 //
-// Backward, one launch with two kinds of blocks:
-//   * dx blocks: the same tile code on the upstream gradient g with the
-//     flipped, in/out-swapped weights (valid because padding = K/2);
+// Forward, two designs chosen by dtype (both hand-written; neither stands in
+// for the other on failure):
+//   bf16  an implicit GEMM on the tensor cores (conv_fwd_tc_kernel,
+//         mma.sync.m16n8k16, bf16 operands, fp32 sums): M = the output pixels
+//         of a 16 x 16 tile (8 warps, each 2 rows of 16 pixels), N = NT = 32
+//         or 64 output channels, the contraction over (tap, Cin). The block
+//         stages its bf16 halo patch pixel-major, each pixel's Cin channels
+//         contiguous at a padded pitch, so an A fragment's rows are 16-byte
+//         ldmatrix rows at any tap shift (at Cin = 8 one 16-deep step takes
+//         two taps: its two column halves come from two pixel rows). The
+//         weights (K, K, Cin, Cout) are read as rows r = tap * Cin + ci and
+//         streamed in chunks of 64 rows through three shared buffers by
+//         cp.async, as B fragments (ldmatrix.trans); the padding rows of the
+//         last chunk are zeros and their A rows a zero row. Staging the patch
+//         transposes NCHW views on the way in: threads run along W of each
+//         channel plane (coalesced) and store channel pairs into pixel rows;
+//         channels-last maps with 16-byte aligned pixels go by 16-byte cp.async.
+//   fp32  a direct convolution on CUDA cores (conv_fwd_kernel), the first
+//         version: a block takes a 16x16 tile of output pixels and 32 output
+//         channels; it stages the input patch with its halo (zero outside the
+//         map) and the weights of CI input channels at a time in shared
+//         memory, and each thread keeps the 32 fp32 sums of one pixel in
+//         registers. The tensor cores take fp32 only as TF32, which would
+//         break the fp32 kernel's 1e-4 agreement with its twin.
+//
+// Backward, one launch with two kinds of blocks (CUDA cores, both dtypes):
+//   * dx blocks: the fp32 forward's tile code on the upstream gradient g with
+//     the flipped, in/out-swapped weights (valid because padding = K/2);
 //   * dw blocks: a block owns 8 input x 32 output channels, each thread one
 //     (ci, co) pair with its K*K sums, and walks a slice of 8x16 pixel tiles
 //     of the batch, staging the x patch and the g tile in shared memory.
@@ -29,13 +48,18 @@
 // runs are bit-identical.
 //
 // Numerics as the Pallas bodies: x (g) in its dtype, the weights rounded to
-// x's dtype by the wrapper (the JAX wrapper packs them in x's dtype), products
-// and sums in fp32, one rounding of each output to x's dtype; dw in fp32.
-// x, g and the outputs are read and written through element strides on every
-// dim (NHWC shapes), so NCHW tensors arrive as permuted views without a copy.
+// x's dtype by the wrapper (the JAX wrapper packs them in x's dtype; stored
+// as bf16 for the tensor-core forward, as fp32 elsewhere), products and sums
+// in fp32, one rounding of each output to x's dtype; dw in fp32. x, g and the
+// outputs are read and written through element strides on every dim (NHWC
+// shapes), so NCHW tensors arrive as permuted views without a copy. Every
+// output element is written by one block: repeat runs are bit-identical.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "mma_ptx.cuh"
 
 namespace {
 
@@ -190,13 +214,14 @@ __device__ void dw_part(float* smem, const T* __restrict__ x, const T* __restric
   }
 }
 
-template <typename T, int K>
-__global__ void __launch_bounds__(THREADS) conv_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                                                           T* __restrict__ out, int h, int wd, int cin, int cout,
+// The fp32 forward (bf16 runs conv_fwd_tc_kernel)
+template <int K>
+__global__ void __launch_bounds__(THREADS) conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                                                           float* __restrict__ out, int h, int wd, int cin, int cout,
                                                            int tiles_x, Strides sx, Strides so) {
   __shared__ __align__(16) float smem[Cfg<K>::FWD_SMEM];
   const int ty = blockIdx.x / tiles_x, tx = blockIdx.x % tiles_x;
-  conv_tile<T, K>(smem, x, w, out, blockIdx.z, ty * TILE, tx * TILE, blockIdx.y * CO_T, h, wd, cin, cout, sx, so);
+  conv_tile<float, K>(smem, x, w, out, blockIdx.z, ty * TILE, tx * TILE, blockIdx.y * CO_T, h, wd, cin, cout, sx, so);
 }
 
 // Blocks [0, n_dx) compute dx tiles, the rest dw partials.
@@ -238,13 +263,13 @@ __global__ void sum_parts_kernel(const float* __restrict__ partial, float* __res
   out[i] = s;
 }
 
-template <typename T, int K>
+template <int K>
 cudaError_t fwd(const void* x, const float* w, void* out, int b, int h, int wd, int cin, int cout, Strides sx,
                 Strides so, cudaStream_t stream) {
   const int tiles_x = (wd + TILE - 1) / TILE, tiles_y = (h + TILE - 1) / TILE;
   dim3 grid(tiles_x * tiles_y, (cout + CO_T - 1) / CO_T, b);
-  conv_fwd_kernel<T, K><<<grid, THREADS, 0, stream>>>(static_cast<const T*>(x), w, static_cast<T*>(out), h, wd, cin,
-                                                      cout, tiles_x, sx, so);
+  conv_fwd_kernel<K><<<grid, THREADS, 0, stream>>>(static_cast<const float*>(x), w, static_cast<float*>(out), h, wd,
+                                                   cin, cout, tiles_x, sx, so);
   return cudaGetLastError();
 }
 
@@ -265,13 +290,12 @@ cudaError_t bwd(const void* x, const void* g, const float* wf, void* dx, float* 
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t fwd_k(int k, const void* x, const float* w, void* out, int b, int h, int wd, int cin, int cout, Strides sx,
                   Strides so, cudaStream_t st) {
   switch (k) {
-    case 3: return fwd<T, 3>(x, w, out, b, h, wd, cin, cout, sx, so, st);
-    case 5: return fwd<T, 5>(x, w, out, b, h, wd, cin, cout, sx, so, st);
-    case 7: return fwd<T, 7>(x, w, out, b, h, wd, cin, cout, sx, so, st);
+    case 3: return fwd<3>(x, w, out, b, h, wd, cin, cout, sx, so, st);
+    case 5: return fwd<5>(x, w, out, b, h, wd, cin, cout, sx, so, st);
+    case 7: return fwd<7>(x, w, out, b, h, wd, cin, cout, sx, so, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -287,19 +311,238 @@ cudaError_t bwd_k(int k, const void* x, const void* g, const float* wf, void* dx
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc = cenet::tc;
+using bf16 = __nv_bfloat16;
+
+// A block's tiling: NW warps of MB 16-pixel rows (m blocks) each, so an output
+// tile of TH = NW * MB rows of TW = 16 pixels; the weights streamed in chunks
+// of KC contraction rows through STAGES shared buffers.
+template <int NW_, int MB_, int KC_, int STAGES_>
+struct ConvTiles {
+  static constexpr int NW = NW_, MB = MB_, KC = KC_, STAGES = STAGES_;
+  static constexpr int TW = 16, TH = NW * MB, THREADS = 32 * NW;
+  static_assert(KC % 16 == 0 && STAGES >= 2, "whole 16-deep steps; one chunk in flight while one is used");
+};
+
+template <int K, int CIN, int NT, class C>
+struct TcCfg {
+  // a pixel's channels at a padded pitch, so that 8 consecutive pixels (the
+  // rows of one ldmatrix tile) fall on distinct banks
+  static constexpr int CP = CIN == 8 ? 24 : CIN + 8;
+  static constexpr int PH = C::TH + K - 1, PW = C::TW + K - 1;
+  static constexpr int NTP = NT + 8;        // a weight row's pitch (ldmatrix.trans rows on distinct banks)
+  static constexpr int ROWS = K * K * CIN;  // the contraction: row tap * CIN + ci
+  static constexpr int CHUNKS = (ROWS + C::KC - 1) / C::KC;
+  static constexpr int PATCH = PH * PW * CP + 8;  // and one zero row
+  static constexpr int SMEM = 2 * (PATCH + C::STAGES * C::KC * NTP);
+  static_assert(CIN % 8 == 0 && NT % 16 == 0, "8-channel ldmatrix rows, n blocks in pairs");
+};
+
+// out[b, y0 .. y0+TH-1, x0 .. x0+15, n0 .. n0+NT-1] = conv(x, w) on one tile.
+// x bf16 by element strides; w bf16 (K, K, CIN, cout) contiguous, 16-byte
+// aligned, cout % 8 == 0. vec_x: channels-last with 16-byte aligned pixels;
+// vec_o: channels-last with 4-byte aligned channel pairs.
+template <int K, int CIN, int NT, class C>
+__global__ void __launch_bounds__(C::THREADS) conv_fwd_tc_kernel(const bf16* __restrict__ x,
+                                                                 const bf16* __restrict__ w, bf16* __restrict__ out,
+                                                                 int h, int wd, int cout, int tiles_x, Strides sx,
+                                                                 Strides so, int vec_x, int vec_o) {
+  using Cf = TcCfg<K, CIN, NT, C>;
+  constexpr int CP = Cf::CP, PH = Cf::PH, PW = Cf::PW, NTP = Cf::NTP, PAD = K / 2, NB = NT / 8;
+  constexpr int MB = C::MB, KC = C::KC, S = C::STAGES, NTH = C::THREADS;
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  bf16* Ps = reinterpret_cast<bf16*>(conv_smem);  // [PH][PW][CP], then the zero row
+  bf16* Ws = Ps + Cf::PATCH;                      // [S][KC][NTP]
+  bf16* zero_row = Ps + PH * PW * CP;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int y0 = (blockIdx.x / tiles_x) * C::TH, x0 = (blockIdx.x % tiles_x) * C::TW, n0 = blockIdx.y * NT;
+  const bf16* xb = x + blockIdx.z * sx.b;
+
+  // weight chunk s (rows s * KC ..) into buffer s % S by cp.async; zeros past
+  // the last row and past cout
+  auto stage = [&](int s) {
+    constexpr int CH = NT / 8;
+    bf16* buf = Ws + (s % S) * KC * NTP;
+    for (int i = threadIdx.x; i < KC * CH; i += NTH) {
+      const int r = i / CH, c = (i % CH) * 8, row = s * KC + r;
+      bf16* dst = buf + r * NTP + c;
+      if (row < Cf::ROWS && n0 + c < cout) tc::cp_async16(dst, w + (long long)row * cout + n0 + c);
+      else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  // one commit group per chunk, empty past the last
+  auto issue = [&](int s) {
+    if (s < Cf::CHUNKS) stage(s);
+    tc::cp_async_commit();
+  };
+
+  // chunk 0's copies first, so that they fly while the patch is staged; the
+  // patch's own copies (channels-last) join chunk 0's group
+  stage(0);
+  if (vec_x) {
+    constexpr int CH = CIN / 8;
+    for (int i = threadIdx.x; i < PH * PW * CH; i += NTH) {
+      const int c = (i % CH) * 8, pix = i / CH, gy = y0 + pix / PW - PAD, gx = x0 + pix % PW - PAD;
+      bf16* dst = Ps + pix * CP + c;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < wd) tc::cp_async16(dst, xb + gy * sx.h + gx * sx.w + c);
+      else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {  // any strides (NCHW views: consecutive threads along W of a channel plane)
+#pragma unroll 4
+    for (int i = threadIdx.x; i < PH * PW * (CIN / 2); i += NTH) {
+      const int xx = i % PW, r = i / PW, yy = r % PH, c = 2 * (r / PH);
+      const int gy = y0 + yy - PAD, gx = x0 + xx - PAD;
+      uint32_t v = 0u;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < wd) {
+        const bf16* src = xb + gy * sx.h + gx * sx.w + c * sx.c;
+        v = (uint32_t)__bfloat16_as_ushort(src[0]) | ((uint32_t)__bfloat16_as_ushort(src[sx.c]) << 16);
+      }
+      *reinterpret_cast<uint32_t*>(Ps + (yy * PW + xx) * CP + c) = v;
+    }
+  }
+  if (threadIdx.x < 2) reinterpret_cast<uint2*>(zero_row)[threadIdx.x] = make_uint2(0u, 0u);
+  tc::cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < S - 1; ++s) issue(s);
+
+  float acc[MB][NB][4] = {};
+  const int pix = lane & 15, half = lane >> 4;  // this lane's A row (pixel) and column half
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * NTP + (lane >> 4) * 8;
+  const bf16* a_base = Ps + (warp * MB * PW + pix) * CP;
+  for (int s = 0; s < Cf::CHUNKS; ++s) {
+    tc::cp_async_wait<S - 2>();  // chunk s (and at s = 0 the patch) has landed
+    __syncthreads();             // ... for every thread, and chunk s - 1's buffer is free
+    issue(s + S - 1);
+    const bf16* wb = Ws + (s % S) * KC * NTP + b_off;
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      // this lane's 8 contraction rows: tap r / CIN, channels r % CIN .. + 7
+      const int r = s * KC + kk * 16 + half * 8, tap = r / CIN;
+      const bool real = tap < K * K;
+      const bf16* a_row = real ? a_base + ((tap / K) * PW + tap % K) * CP + r % CIN : zero_row;
+      const int a_step = real ? PW * CP : 0;  // the next m block: one output row down
+      uint32_t bf[NB / 2][4];
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) tc::ldsm_x4_trans(bf[n2], wb + kk * 16 * NTP + n2 * 16);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        uint32_t a[4];
+        tc::ldsm_x4(a, a_row + mb * a_step);
+#pragma unroll
+        for (int n2 = 0; n2 < NB / 2; ++n2) {
+          tc::mma_bf16(acc[mb][2 * n2], a, bf[n2][0], bf[n2][1]);
+          tc::mma_bf16(acc[mb][2 * n2 + 1], a, bf[n2][2], bf[n2][3]);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  // rows g, g + 8 of each m block are pixels x0 + g, x0 + g + 8 of output row
+  // y0 + warp * MB + mb; columns n0 + 8 nb + 2t, + 1 are output channels
+  bf16* ob = out + blockIdx.z * so.b;
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) {
+    const int y = y0 + warp * MB + mb;
+    if (y >= h) continue;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int co = n0 + nb * 8 + 2 * t;
+      if (co >= cout) continue;  // cout % 8 == 0: co + 1 < cout too
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int xq = x0 + g + 8 * i;
+        if (xq >= wd) continue;
+        bf16* o = ob + y * so.h + xq * so.w + co * so.c;
+        const float v0 = acc[mb][nb][2 * i], v1 = acc[mb][nb][2 * i + 1];
+        if (vec_o) {
+          *reinterpret_cast<uint32_t*>(o) = tc::pack_bf16(v0, v1);
+        } else {
+          o[0] = __float2bfloat16(v0);
+          o[so.c] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
+}
+
+// The tiling launched: 8 warps of 2 pixel rows ran 4-14% faster than 4 warps
+// of 4 at the OutHead shapes; the chunk size (64 or 128 rows) and the chunks
+// in flight (2 or 3) moved little (PERF.md; timed with
+// cenet_tpu_torch/tools/time_tilings.py)
+using ConvFwdTiles = ConvTiles<8, 2, 64, 3>;
+
+inline int vec_in(const void* x, Strides sx) {
+  return sx.c == 1 && reinterpret_cast<uintptr_t>(x) % 16 == 0 && sx.b % 8 == 0 && sx.h % 8 == 0 && sx.w % 8 == 0;
+}
+inline int vec_out(const void* out, Strides so) {
+  return so.c == 1 && reinterpret_cast<uintptr_t>(out) % 4 == 0 && so.b % 2 == 0 && so.h % 2 == 0 && so.w % 2 == 0;
+}
+
+template <int K, int CIN, int NT, class C = ConvFwdTiles>
+cudaError_t fwd_tc(const void* x, const void* w, void* out, int b, int h, int wd, int cout, Strides sx, Strides so,
+                   cudaStream_t stream) {
+  using Cf = TcCfg<K, CIN, NT, C>;
+  if (cout % 8 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0) return cudaErrorInvalidValue;
+  auto kernel = conv_fwd_tc_kernel<K, CIN, NT, C>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (wd + C::TW - 1) / C::TW, tiles_y = (h + C::TH - 1) / C::TH;
+  dim3 grid(tiles_x * tiles_y, (cout + NT - 1) / NT, b);
+  kernel<<<grid, C::THREADS, Cf::SMEM, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                                                 static_cast<bf16*>(out), h, wd, cout, tiles_x, sx, so, vec_in(x, sx),
+                                                 vec_out(out, so));
+  return cudaGetLastError();
+}
+
+// NT = 32 output channels a block up to cout = 32, else 64
+template <int K, int CIN>
+cudaError_t fwd_tc_n(const void* x, const void* w, void* out, int b, int h, int wd, int cout, Strides sx, Strides so,
+                     cudaStream_t st) {
+  return cout <= 32 ? fwd_tc<K, CIN, 32>(x, w, out, b, h, wd, cout, sx, so, st)
+                    : fwd_tc<K, CIN, 64>(x, w, out, b, h, wd, cout, sx, so, st);
+}
+
+template <int K>
+cudaError_t fwd_tc_c(const void* x, const void* w, void* out, int b, int h, int wd, int cin, int cout, Strides sx,
+                     Strides so, cudaStream_t st) {
+  switch (cin) {
+    case 8: return fwd_tc_n<K, 8>(x, w, out, b, h, wd, cout, sx, so, st);
+    case 16: return fwd_tc_n<K, 16>(x, w, out, b, h, wd, cout, sx, so, st);
+    case 32: return fwd_tc_n<K, 32>(x, w, out, b, h, wd, cout, sx, so, st);
+    case 64: return fwd_tc_n<K, 64>(x, w, out, b, h, wd, cout, sx, so, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t fwd_tc_k(int k, const void* x, const void* w, void* out, int b, int h, int wd, int cin, int cout,
+                     Strides sx, Strides so, cudaStream_t st) {
+  switch (k) {
+    case 3: return fwd_tc_c<3>(x, w, out, b, h, wd, cin, cout, sx, so, st);
+    case 5: return fwd_tc_c<5>(x, w, out, b, h, wd, cin, cout, sx, so, st);
+    case 7: return fwd_tc_c<7>(x, w, out, b, h, wd, cin, cout, sx, so, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// x (B, H, W, Cin) and out (B, H, W, Cout) by element strides; w fp32
-// (K, K, Cin, Cout) contiguous, already rounded to x's dtype.
+// x (B, H, W, Cin) and out (B, H, W, Cout) by element strides; w (K, K, Cin,
+// Cout) contiguous, already rounded to x's dtype: bf16 (16-byte aligned) for a
+// bf16 x, fp32 for an fp32 x.
 extern "C" int cenet_smallc_conv_fwd(int is_bf16, const void* x, const void* w, void* out, int b, int h, int wd,
                                      int cin, int cout, int k, long long sxb, long long sxh, long long sxw,
                                      long long sxc, long long sob, long long soh, long long sow, long long soc,
                                      void* stream) {
   Strides sx{sxb, sxh, sxw, sxc}, so{sob, soh, sow, soc};
   auto st = static_cast<cudaStream_t>(stream);
-  auto wf = static_cast<const float*>(w);
-  return is_bf16 ? (int)fwd_k<__nv_bfloat16>(k, x, wf, out, b, h, wd, cin, cout, sx, so, st)
-                 : (int)fwd_k<float>(k, x, wf, out, b, h, wd, cin, cout, sx, so, st);
+  return is_bf16 ? (int)fwd_tc_k(k, x, w, out, b, h, wd, cin, cout, sx, so, st)
+                 : (int)fwd_k(k, x, static_cast<const float*>(w), out, b, h, wd, cin, cout, sx, so, st);
 }
 
 // x (B, H, W, Cin), g (B, H, W, Cout), dx (B, H, W, Cin) by element strides;

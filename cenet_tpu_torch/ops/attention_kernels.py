@@ -23,14 +23,14 @@ Mirrors the kernels of ``cenet_tpu/ops/pallas_attention.py``:
   :func:`attention_bwd`'s gradients in one launch (no router calls it), source
   ``csrc/attention_bwd_fused.cu``.
 
-K1–K5, K7 and K8 launch one of two hand-written designs by dtype: bf16 runs on
+Every kernel launches one of two hand-written designs by dtype: bf16 runs on
 the tensor cores (``mma.sync`` on bf16 tiles with fp32 sums;
 ``csrc/attention_tc.cuh`` for K2, K4 and K8, ``csrc/diff_attention_tc.cuh`` for
-K1, K3, K5 and K7, where K5 is K1's kernel on the split head views and K7 K3's
-kernels with its own dv rounding), fp32 on CUDA cores in fp32 FMA
+K1, K3, K5, K6 and K7, where K5 is K1's kernel on the split head views, K7 K3's
+kernels with its own dv rounding and K6 K3's dq kernel that also adds each key
+tile's dk and dv partials), fp32 on CUDA cores in fp32 FMA
 (``csrc/attention_{fwd,bwd}_common.cuh``), because the tensor cores take fp32
-only as TF32. Both keep the Pallas bodies' rounding points. K6 runs on CUDA
-cores in both dtypes.
+only as TF32. Both keep the Pallas bodies' rounding points.
 
 :class:`DiffAttentionInterleavedFn`, :class:`DiffAttentionFn` and
 :class:`AttentionFn` pair each routed forward kernel with its backward, as the
@@ -391,8 +391,9 @@ def diff_attention_bwd(q1, k1, q2, k2, v, lam, lse1, lse2, do):
     """Gradients of :func:`diff_attention_fwd` in one launch (K6): ``do``
     ``(B, h, N, dv)``, ``lse1``/``lse2`` its fp32 row log-sum-exps. dk₁, dk₂ and
     dv are summed over query tiles with fp32 atomics, so repeat runs differ in
-    their last bits. Returns ``(dq1, dk1, dq2, dk2, dv, dlam)``; dλ = −Σ δ₂ is one
-    ``torch.sum`` over the kernel's per-row δ₂ (no host sync)."""
+    their last bits; dq₁, dq₂ and δ₂ repeat exactly. Returns
+    ``(dq1, dk1, dq2, dk2, dv, dlam)``; dλ = −Σ δ₂ is one ``torch.sum`` over
+    the kernel's per-row δ₂ (no host sync)."""
     if q1.device.type == "cpu":
         return diff_attention_bwd_plain(q1, k1, q2, k2, v, lam, lse1, lse2, do)
     return _diff_split_bwd("diff_attention_bwd", "diff_attention_split_bwd", "cenet_diff_attention_split_bwd",

@@ -3,8 +3,10 @@
 Mirrors ``tools/negative_results/smallc_conv.py``: :func:`conv_small_c` is
 ``conv_small_c`` there (stride 1, NHWC x, HWIO weights ``(k, k, Cin, Cout)``,
 padding k//2). Its kernels replace ``_pallas_conv_fwd`` and
-``_pallas_conv_bwd`` (source ``csrc/smallc_conv.cu``): a direct convolution
-for the forward, and one fused launch for the backward's dx and dw (plus the
+``_pallas_conv_bwd`` (source ``csrc/smallc_conv.cu``): for the forward an
+implicit GEMM on the tensor cores in bf16 (``mma.sync``, fp32 sums) and a
+direct convolution on CUDA cores in fp32, which the tensor cores take only as
+TF32; for the backward one fused launch for dx and dw on CUDA cores (plus the
 ordered sum of the dw partials). :class:`ConvSmallCFn` is
 ``_conv_small_c_pallas``'s custom_vjp.
 
@@ -105,10 +107,14 @@ def conv_small_c_fwd(x: torch.Tensor, w: torch.Tensor, padding: int) -> torch.Te
     _check(name, x, w, padding)
     b, h, wd, cin = x.shape
     k, cout = w.shape[0], w.shape[3]
-    wf = w.to(x.dtype).float().contiguous()
+    # rounded to x's dtype and stored in it (the tensor-core kernel's 16-byte
+    # weight rows need an aligned start)
+    wk = w.to(x.dtype).contiguous()
+    if wk.data_ptr() % 16:
+        wk = wk.clone()
     out = _out_like(x, cout)
     rc = binding.kernel("smallc_conv", "cenet_smallc_conv_fwd", _FWD_ARGTYPES)(
-        binding.is_bf16(x), *binding.ptrs(x, wf, out), b, h, wd, cin, cout, k, *binding.strides(x, 4),
+        binding.is_bf16(x), *binding.ptrs(x, wk, out), b, h, wd, cin, cout, k, *binding.strides(x, 4),
         *binding.strides(out, 4), binding.stream())
     binding.raise_on(name, rc)
     binding.LAUNCHES[name] += 1

@@ -1,16 +1,25 @@
-"""Time K8's tensor-core kernel (``attention_bwd_fused_tc_kernel``) under each
-candidate block tiling at the dec1 Nonlocal site of a training batch.
+"""Time the tensor-core kernels that have candidate block tilings at their
+sites on the main paths.
 
-    python3 -m cenet_tpu_torch.tools.time_tilings
+    python3 -m cenet_tpu_torch.tools.time_tilings [k6] [k8] [k12]
 
-Compiles one small source that includes ``csrc/attention_tc.cuh`` and exposes
-``bwd_fused_launch`` under each tiling of ``TILINGS`` (``nvcc -Xptxas -v``
-prints each instance's registers and spills), then, on bf16 inputs of
-B = 8, H = 1, N = M = 3136, d = dv = 64: checks that every tiling gives the
-production wrapper's dk and dv to the bit and its dq within 2^-8 of max |dq|,
-and times the tilings in turns (a, b, …, b, a) with CUDA events. Prints one
-JSON line per tiling and the card's name and power limit. Needs one CUDA
-device and ``nvcc``.
+K8 (``attention_bwd_fused_tc_kernel``, ``csrc/attention_tc.cuh``) at the dec1
+Nonlocal site: B = 8, H = 1, N = M = 3136, d = dv = 64, blocks of 16·warps
+keys against streamed query tiles. K6 (``diff_bwd_one_tc_kernel``,
+``csrc/diff_attention_tc.cuh``) at the DSEB1 site: B = 8, h = 8, N = M = 3136,
+d = 8, dv = 16 on the split head views of the projections, blocks of
+16·warps query rows against key tiles of 64. K12's bf16 forward
+(``conv_fwd_tc_kernel``, ``csrc/smallc_conv.cu``) at the three OutHead
+shapes of a 32-slice chunk (5×5 32→32 at 224², 3×3 64→32 and 64→64 at 112²,
+NCHW views): warps, pixel rows a warp, weight rows a chunk and chunks in
+flight. Each kernel's variants are
+compiled into one small source (``nvcc -Xptxas -v`` prints each instance's
+registers and spills); on bf16 inputs each tiling is held to the production
+wrapper (the outputs that one block writes equal to the bit, K6's δ too;
+the gradients summed with atomics within 2^-8 of their max) and the tilings are
+timed in turns (a, b, …, b, a) with CUDA events. Prints one JSON line per
+tiling and the card's name and power limit. Needs one CUDA device and
+``nvcc``; with no argument it times both kernels.
 """
 
 from __future__ import annotations
@@ -27,12 +36,15 @@ import torch
 from cenet_tpu_torch.ops import attention_kernels as K
 from cenet_tpu_torch.ops import binding, build
 
-# (warps, streamed query rows): blocks of 16 * warps keys
-TILINGS = [(4, 32), (8, 32)]
+# each kernel's candidate tilings: (warps, streamed rows) for K6 and K8;
+# (warps, 16-pixel rows a warp, weight rows a chunk, chunks in flight) for K12
+TILINGS = {"k8": [(4, 32), (8, 32)], "k6": [(4, 64), (8, 64)],
+           "k12": [(4, 4, 64, 2), (4, 4, 128, 2), (4, 4, 64, 3), (4, 4, 128, 3), (8, 2, 64, 3), (8, 4, 64, 3)]}
+# K12's sites: (name, x NHWC, k, cout), x handed over as a view of NCHW memory
+K12_SITES = [("rb.0.conv2", (32, 224, 224, 32), 5, 32), ("up.1", (32, 112, 112, 64), 3, 32),
+             ("out.0.conv", (32, 112, 112, 64), 3, 64)]
 
-_SOURCE = """
-#include "attention_tc.cuh"
-namespace tc = cenet::tc;
+_SOURCE = {"k8": ("attention_tc.cuh", """
 template <class C>
 static int run(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
                float* dq, void* dk, void* dv, int B, int H, int N, int M, int D, void* stream) {
@@ -42,26 +54,81 @@ static int run(const void* q, const void* k, const void* v, const void* dout, co
                       static_cast<tc::bf16*>(dv), H, N, M, D, D, 0, tc::out_vec(dk, D), tc::out_vec(dv, D), dq};
   return tc::bwd_fused_launch<C>(a, B, static_cast<cudaStream_t>(stream));
 }
-"""
-_ENTRY = """extern "C" int fused_{nw}_{bs}(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+""", """extern "C" int k8_{nw}_{bs}(const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* delta, float* dq, void* dk, void* dv, int B, int H, int N, int M, int D, void* stream) {{
   return run<tc::Tiles<{nw}, {bs}>>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, stream);
 }}
-"""
+"""), "k12": ("smallc_conv.cu", """
+// the OutHead shapes only: fwd_tc<K, CIN, NT, tiling>
+template <class C>
+static int run(int k, int cin, const void* x, const void* w, void* out, int b, int h, int wd, int cout,
+               long long sxb, long long sxh, long long sxw, long long sxc, long long sob, long long soh,
+               long long sow, long long soc, void* stream) {
+  const Strides sx{sxb, sxh, sxw, sxc}, so{sob, soh, sow, soc};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (k == 5 && cin == 32 && cout <= 32) return fwd_tc<5, 32, 32, C>(x, w, out, b, h, wd, cout, sx, so, st);
+  if (k == 3 && cin == 64 && cout <= 32) return fwd_tc<3, 64, 32, C>(x, w, out, b, h, wd, cout, sx, so, st);
+  if (k == 3 && cin == 64) return fwd_tc<3, 64, 64, C>(x, w, out, b, h, wd, cout, sx, so, st);
+  return cudaErrorInvalidValue;
+}
+""", """extern "C" int k12_{nw}_{mb}_{kc}_{st}(int k, int cin, const void* x, const void* w, void* out, int b, int h, int wd,
+    int cout, long long sxb, long long sxh, long long sxw, long long sxc, long long sob, long long soh, long long sow,
+    long long soc, void* stream) {{
+  return run<ConvTiles<{nw}, {mb}, {kc}, {st}>>(k, cin, x, w, out, b, h, wd, cout, sxb, sxh, sxw, sxc, sob, soh, sow,
+                                                soc, stream);
+}}
+"""), "k6": ("diff_attention_tc.cuh", """
+// q1, k1, q2, k2 share the strides sq (split views of one projection layout)
+template <class C>
+static int run(const void* q1, const void* k1, const void* q2, const void* k2, const void* v, const void* dout,
+               const float* lam, const float* lse1, const float* lse2, float* delta1, float* delta2, void* dq1,
+               float* dk1, void* dq2, float* dk2, float* dv, int B, int H, int N, int D, int DV, long long sqb,
+               long long sqh, long long sqn, long long svb, long long svh, long long svn, long long sob,
+               long long soh, long long son, void* stream) {
+  auto in = [&](const void* x, long long sb, long long sh, long long sn) { return tc::operand(x, sb, sh, sn, B, H); };
+  auto out = [&](void* x) { return tc::out_rows(x, (long long)H * N * D, (long long)N * D, D); };
+  const tc::DiffBwdArgs a{{in(q1, sqb, sqh, sqn), in(q2, sqb, sqh, sqn)}, {in(k1, sqb, sqh, sqn), in(k2, sqb, sqh, sqn)},
+                          in(v, svb, svh, svn), in(dout, sob, soh, son), lam, {lse1, lse2}, {delta1, delta2},
+                          {out(dq1), out(dq2)}, {}, nullptr, H, N, N, D, DV, 0, {dk1, dk2}, dv};
+  return tc::diff_bwd_one_launch<C>(a, B, static_cast<cudaStream_t>(stream));
+}
+""", """extern "C" int k6_{nw}_{bs}(const void* q1, const void* k1, const void* q2, const void* k2, const void* v,
+    const void* dout, const float* lam, const float* lse1, const float* lse2, float* delta1, float* delta2, void* dq1,
+    float* dk1, void* dq2, float* dk2, float* dv, int B, int H, int N, int D, int DV, long long sqb, long long sqh,
+    long long sqn, long long svb, long long svh, long long svn, long long sob, long long soh, long long son,
+    void* stream) {{
+  return run<tc::Tiles<{nw}, {bs}>>(q1, k1, q2, k2, v, dout, lam, lse1, lse2, delta1, delta2, dq1, dk1, dq2, dk2, dv,
+                                    B, H, N, D, DV, sqb, sqh, sqn, svb, svh, svn, sob, soh, son, stream);
+}}
+""")}
+_ARGTYPES = {"k8": [binding.P] * 9 + [binding.I] * 5 + [binding.P],
+             "k12": [binding.I] * 2 + [binding.P] * 3 + [binding.I] * 4 + [binding.L] * 8 + [binding.P],
+             "k6": [binding.P] * 16 + [binding.I] * 5 + [binding.L] * 9 + [binding.P]}
+_KERNEL_SYMBOL = {"k8": "attention_bwd_fused_tc_kernel", "k6": "diff_bwd_one_tc_kernel", "k12": "conv_fwd_tc_kernel"}
 
 
-def compile_variants(out_dir: Path):
-    src = out_dir / "fused_tilings.cu"
-    src.write_text(_SOURCE + "".join(_ENTRY.format(nw=nw, bs=bs) for nw, bs in TILINGS))
-    lib = out_dir / "libfused_tilings.so"
+def compile_variants(kernel: str, out_dir: Path):
+    header, body, entry = _SOURCE[kernel]
+    src = out_dir / f"{kernel}_tilings.cu"
+    prelude = f'#include "{header}"\n' + ("" if kernel == "k12" else "namespace tc = cenet::tc;\n")
+    src.write_text(prelude + body + "".join(entry.format(**_fields(kernel, t)) for t in TILINGS[kernel]))
+    lib = out_dir / f"lib{kernel}_tilings.so"
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", f"-I{build.CSRC}", "-o", str(lib), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
-    # ptxas reports per kernel instance: keep the lines of the fused kernels
+    # ptxas reports per kernel instance: keep the lines of the timed kernel
     report = [line for line in proc.stderr.splitlines() if "registers" in line or "spill" in line
-              or "attention_bwd_fused_tc_kernel" in line]
+              or _KERNEL_SYMBOL[kernel] in line]
     return ctypes.CDLL(str(lib)), report
+
+
+def _fields(kernel, tiling):
+    return dict(zip(("nw", "mb", "kc", "st") if kernel == "k12" else ("nw", "bs"), tiling))
+
+
+def _name(kernel, tiling):
+    return kernel + "_" + "_".join(str(v) for v in tiling)
 
 
 def time_ms(fn, reps=20) -> float:
@@ -76,47 +143,137 @@ def time_ms(fn, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main():
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+def k8_calls(lib, dev):
+    """K8's variants on dec1's inputs: {tiling: call}, the wrapper's (dq, dk, dv),
+    and per tiling a function giving its (dq, dk, dv) after a call."""
     b, h, n, d = 8, 1, 3136, 64
-    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     q = (torch.randn(b, h, n, d, generator=gen, device=dev) * d**-0.5).bfloat16()
     k, v, do = (torch.randn(b, h, n, d, generator=gen, device=dev).bfloat16() for _ in range(3))
     o, lse = K.attention_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1).contiguous()
     want = K.attention_bwd_fused(q, k, v, o, lse, do)
-    build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
-        lib, report = compile_variants(Path(tmp))
-    print("\n".join(report), file=sys.stderr)
-    fns, outs = {}, {}
-    for nw, bs in TILINGS:
-        fn = getattr(lib, f"fused_{nw}_{bs}")
-        fn.argtypes, fn.restype = [binding.P] * 9 + [binding.I] * 5 + [binding.P], binding.I
+    calls = {}
+    for nw, bs in TILINGS["k8"]:
+        fn = getattr(lib, _name("k8", (nw, bs)))
+        fn.argtypes, fn.restype = _ARGTYPES["k8"], binding.I
         dq = torch.zeros(b, h, n, d, device=dev)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
 
         def call(fn=fn, dq=dq, dk=dk, dv=dv):
             dq.zero_()
-            binding.raise_on("fused tiling", fn(*binding.ptrs(q, k, v, do, lse, delta, dq, dk, dv), b, h, n, n, d,
-                                                binding.stream()))
+            binding.raise_on("k8 tiling", fn(*binding.ptrs(q, k, v, do, lse, delta, dq, dk, dv), b, h, n, n, d,
+                                             binding.stream()))
+            return dq.bfloat16(), dk, dv
 
-        call()
+        calls[(nw, bs)] = call
+    # (gradients one block writes, gradients summed with atomics)
+    return calls, want, ("dk", "dv"), ("dq",), ("dq", "dk", "dv")
+
+
+def k6_calls(lib, dev):
+    """K6's variants on DSEB1's inputs (split head views of (B, N, 2h, d)
+    projections, a strided dO), as ``k8_calls``."""
+    b, h, n, d, dv_ = 8, 8, 3136, 8, 16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = (torch.randn(b, n, 2 * h, d, generator=gen, device=dev) * d**-0.5).bfloat16().transpose(1, 2)
+    k = torch.randn(b, n, 2 * h, d, generator=gen, device=dev).bfloat16().transpose(1, 2)
+    v = torch.randn(b, n, h, dv_, generator=gen, device=dev).bfloat16().transpose(1, 2)
+    do = torch.randn(b, n, h, dv_, generator=gen, device=dev).bfloat16().transpose(1, 2)
+    lam = torch.tensor(0.2, device=dev)
+    groups = q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2]
+    _, lse1, lse2 = K.diff_attention_fwd(*groups, v, lam)
+    want = K.diff_attention_bwd(*groups, v, lam, lse1, lse2, do)
+    calls = {}
+    for nw, bs in TILINGS["k6"]:
+        fn = getattr(lib, _name("k6", (nw, bs)))
+        fn.argtypes, fn.restype = _ARGTYPES["k6"], binding.I
+        d1, d2 = (torch.empty(b, h, n, device=dev) for _ in range(2))
+        dq1, dq2 = torch.empty(b, h, n, d, device=dev).bfloat16(), torch.empty(b, h, n, d, device=dev).bfloat16()
+        acc = [torch.zeros(b, h, n, c, device=dev) for c in (d, d, dv_)]
+
+        def call(fn=fn, d1=d1, d2=d2, dq1=dq1, dq2=dq2, acc=acc):
+            for a in acc:
+                a.zero_()
+            binding.raise_on("k6 tiling", fn(*binding.ptrs(*groups, v, do, lam, lse1, lse2, d1, d2, dq1, acc[0], dq2,
+                                                            acc[1], acc[2]), b, h, n, d, dv_,
+                                             *binding.strides(groups[0]), *binding.strides(v), *binding.strides(do),
+                                             binding.stream()))
+            return dq1, acc[0].bfloat16(), dq2, acc[1].bfloat16(), acc[2].bfloat16(), -d2.sum()
+
+        calls[(nw, bs)] = call
+    return calls, want, ("dq1", "dq2", "dlam"), ("dk1", "dk2", "dv"), ("dq1", "dk1", "dq2", "dk2", "dv", "dlam")
+
+
+def k12_bench(lib, dev):
+    """K12's forward tilings at each OutHead shape: each held to the wrapper's
+    output to the bit, timed in turns. Prints one JSON line per (site, tiling)."""
+    from cenet_tpu_torch.ops import smallc_conv as SC
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for site, (b, h, wd, cin), k, cout in K12_SITES:
+        x = torch.randn(b, cin, h, wd, generator=gen, device=dev).bfloat16().permute(0, 2, 3, 1)
+        w = (0.1 * torch.randn(k, k, cin, cout, generator=gen, device=dev)).bfloat16()
+        want = SC.conv_small_c_fwd(x, w, k // 2)
+        calls, outs = {}, {}
+        for t in TILINGS["k12"]:
+            fn = getattr(lib, _name("k12", t))
+            fn.argtypes, fn.restype = _ARGTYPES["k12"], binding.I
+            out = SC._out_like(x, cout)
+
+            def call(fn=fn, out=out):
+                binding.raise_on("k12 tiling", fn(k, cin, *binding.ptrs(x, w, out), b, h, wd, cout,
+                                                  *binding.strides(x, 4), *binding.strides(out, 4), binding.stream()))
+                return out
+
+            calls[t], outs[t] = call, call().clone()
         torch.cuda.synchronize()
-        fns[(nw, bs)], outs[(nw, bs)] = call, (dq.bfloat16(), dk.clone(), dv.clone())
-    times = {t: [] for t in TILINGS}
-    for t in [*TILINGS, *reversed(TILINGS)]:
-        times[t].append(time_ms(fns[t]))
-    for (nw, bs), (dq, dk, dv) in outs.items():
-        dq_err = float((dq.float() - want[0].float()).abs().max())
-        row = {"warps": nw, "query_rows": bs, "key_rows": 16 * nw, "ms": times[(nw, bs)],
-               "dk_dv_equal_wrapper": bool(torch.equal(dk, want[1]) and torch.equal(dv, want[2])),
-               "dq_max_abs_vs_wrapper": dq_err, "dq_max_abs": float(want[0].float().abs().max())}
+        times = {t: [] for t in calls}
+        for t in [*calls, *reversed(list(calls))]:
+            times[t].append(time_ms(calls[t]))
+        for t, got in outs.items():
+            row = {"kernel": "k12", "site": site, **_fields("k12", t), "ms": times[t],
+                   "equal_to_wrapper": bool(torch.equal(got, want))}
+            print(json.dumps(row), flush=True)
+            if not row["equal_to_wrapper"]:
+                raise SystemExit(f"k12 tiling {t} disagrees with the wrapper at {site}: {row}")
+
+
+def bench(kernel: str, dev):
+    build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        lib, report = compile_variants(kernel, Path(tmp))
+    print("\n".join(report), file=sys.stderr)
+    if kernel == "k12":
+        return k12_bench(lib, dev)
+    calls, want, exact, summed, names = (k6_calls if kernel == "k6" else k8_calls)(lib, dev)
+    outs = {t: [x.clone() for x in call()] for t, call in calls.items()}
+    torch.cuda.synchronize()
+    tilings = TILINGS[kernel]
+    times = {t: [] for t in tilings}
+    for t in [*tilings, *reversed(tilings)]:
+        times[t].append(time_ms(calls[t]))
+    for (nw, bs), got in outs.items():
+        by_name = dict(zip(names, got))
+        ref = dict(zip(names, want))
+        equal = {g: bool(torch.equal(by_name[g], ref[g])) for g in exact}
+        errs = {g: float((by_name[g].float() - ref[g].float()).abs().max()) for g in summed}
+        limits = {g: 2.0**-8 * float(ref[g].float().abs().max()) for g in summed}
+        row = {"kernel": kernel, "warps": nw, "streamed_rows": bs, "block_rows": 16 * nw, "ms": times[(nw, bs)],
+               "equal_to_wrapper": equal, "max_abs_vs_wrapper": errs, "limits": limits}
         print(json.dumps(row), flush=True)
-        if not row["dk_dv_equal_wrapper"] or dq_err > 2.0**-8 * row["dq_max_abs"]:
-            raise SystemExit(f"tiling {nw} x {bs} disagrees with the wrapper: {row}")
+        if not all(equal.values()) or any(errs[g] > limits[g] for g in summed):
+            raise SystemExit(f"{kernel} tiling {nw} x {bs} disagrees with the wrapper: {row}")
+
+
+def main():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    kernels = sys.argv[1:] or sorted(TILINGS)
+    for kernel in kernels:
+        if kernel not in TILINGS:
+            raise SystemExit(f"unknown kernel {kernel!r}: choose from {sorted(TILINGS)}")
+        bench(kernel, torch.device("cuda"))
     print(smi, flush=True)
 
 

@@ -30,8 +30,13 @@ runs K10. Phases:
    training batch of 8, forward and backward kernels in fp32 and bf16 against
    the twins in slices of 2, the backward's times in bf16, and whether two
    runs on the same inputs are bit-identical (required of every backward that
-   sums without atomics: K3, K4, K7; of K8 in dk and dv, whose repeat run is
-   also held to the twin);
+   sums without atomics: K3, K4, K7; of K8 in dk and dv and of K6 in dq and
+   dλ, whose repeat runs are also held to the twin); K6 is also held against
+   K7 on the same inputs, under the twin's limits;
+   2c. K9, K11 and K12 against their twins at every site shape of the swapped
+   paths (batch 2, and the 32-slice chunk or the training batch of 8; fp32 and
+   bf16), repeat-run bit-identity of K11's dw and K12's forward and
+   backward, and their times beside the bound and the library call;
 3. slice parity: a seeded CENet-b2 (Synapse preset) on 2 slices at 224², fp32
    on the card (kernels routed) against fp32 on the CPU (twins), then bf16;
    3b. train-step parity: one fp32 forward/backward of the same model in train
@@ -68,9 +73,11 @@ runs K10. Phases:
    kernels of K1–K4 and no CUDA-core instance of any of them;
    7b. ten resident bf16 steps of phase 6's trainer on the split route: step
    ms, launch counts, and one profiled step beside phase 7's, which must show
-   K5 on K1's tensor-core kernel and K6's CUDA-core kernel, and no K3;
+   K5 on K1's tensor-core kernel and K6's tensor-core kernel (two per step),
+   and no K3 and no CUDA-core instance of K6;
    7c. the same as phase 6's steps with K9, K11 and K12 swapped in, profiled
-   with phase 7's designs;
+   with phase 7's designs and K12's tensor-core forward (four per step), and
+   no bf16 instance of K12's CUDA-core forward;
    7d. phase 7b with K7 and K8 swapped in for K6 and K4
    (``split_route(swap_backwards=True)``): step ms, launch counts, and one
    profiled step, which must show K7's tensor-core kernels (K3's dq kernel
@@ -232,8 +239,9 @@ BWD_KERNELS = {
 SPLIT_BWD = ("diff_attention_bwd", "diff_attention_bwd_split")
 # backwards that write each gradient element from one block (K6 and K8 sum with atomics)
 NO_ATOMICS_BWD = ("diff_attention_interleaved_bwd", "attention_bwd", "diff_attention_bwd_split")
-# the gradients an atomic backward still writes from one block: K8's dk and dv
-REPEAT_EXACT = {"attention_bwd_fused": ("dk", "dv")}
+# the gradients an atomic backward still writes from one block: K8's dk and dv,
+# K6's dq (and dλ, one sum over the δ₂ its blocks write)
+REPEAT_EXACT = {"attention_bwd_fused": ("dk", "dv"), "diff_attention_bwd": ("dq1", "dq2", "dlam")}
 DIFF_BWD = ("diff_attention_interleaved_bwd", *SPLIT_BWD)  # these also give dλ
 # launches per 32-slice chunk on each route (every kernel not listed: none)
 VOLUME_PER_CHUNK = {"interleaved": {"diff_attention_interleaved_fwd": 3, "attention_fwd": 2},
@@ -604,14 +612,35 @@ def bwd_bound(kernel, b, h, n, d, dv, itemsize):
     return flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def vs_k7_check(kernel, call, got, where):
+    """K6's gradients (``got``) against K7's on the same inputs, under the limits
+    that ``grad_limits`` sets against the twin there, in max-abs and in norm:
+    the two designs share the twin and its rounding points. Returns the
+    readings."""
+    want, want_r = bwd_refs(kernel, call)
+    k7 = K.diff_attention_bwd_split(*call)
+    out = {}
+    for name, g, w, (lim, nlim) in zip(grad_names(kernel), got, k7, grad_limits(call[0].dtype, want[:5], want_r)):
+        e, ne = amax(g.float() - w.float()), rel_norm(g, w)
+        out.update({f"vs_k7_{name}_err": e, f"vs_k7_{name}_share": e / lim, f"vs_k7_{name}_norm_share": ne / nlim})
+        check(e <= lim and ne <= nlim,
+              f"{kernel} against K7 at {where}: {name} err {e} (limit {lim}), norm err {ne} (limit {nlim})")
+    return out
+
+
 def bwd_site_check(kernel, call, where):
     """Run a backward kernel on ``call`` and hold it against its twin (in slices
-    of 2), dλ included for the diff kernels. Returns the readings."""
+    of 2), dλ included for the diff kernels; K6 also against K7. Returns the
+    readings."""
     got = bwd_kernel_fn(kernel)(*call)
     n = len(grad_names(kernel))
     r = in_slices(bwd_check, kernel, call, got[:n], where)
     if kernel in DIFF_BWD:
         r["dlam_err"] = dlam_check(kernel, got[n], r["dlam_want"], where)
+    if kernel == "diff_attention_bwd":
+        r.update(in_slices(vs_k7_check, kernel, call, got[:n], where))
+        r["vs_k7_dlam_err"] = dlam_check(kernel, got[n], float(K.diff_attention_bwd_split(*call)[n]),
+                                         f"{where}, against K7")
     return r
 
 
@@ -1061,39 +1090,44 @@ def phase_split_volume():
     return split_launches
 
 
-# The attention kernels by their symbols: the tensor-core designs that bf16
-# calls launch, K2's, K4's and K8's (csrc/attention_tc.cuh) and K1's, K5's,
-# K3's and K7's (csrc/diff_attention_tc.cuh; K7 runs K3's dq kernel and the
-# dk/dv kernel whose last template argument, SPLIT_DV, is true); the CUDA-core
-# instances of csrc/attention_{fwd,bwd}_common.cuh (the forward's first
-# template argument is GROUPS, the backward's the dtype), GROUPS = 1 (K2, K4
-# and K8 in fp32) and GROUPS = 2 (K1, K3, K5 and K7 in fp32; K6, the
-# one-launch backward)
-ATTN_KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attention_bwd_dq_tc_kernel<",
-                       "bwd_dkv_tc": r"attention_bwd_dkv_tc_kernel<",
-                       "bwd_fused_tc": r"attention_bwd_fused_tc_kernel<",
-                       "fwd_cuda_core": r"attention_fwd_kernel<1,",
-                       "bwd_cuda_core": r"attention_bwd_(dq|dkv)_kernel<[^,<>]+, 1,",
-                       "diff_fwd_tc": r"diff_fwd_tc_kernel<", "diff_bwd_dq_tc": r"diff_bwd_dq_tc_kernel<",
-                       "diff_bwd_dkv_tc": r"diff_bwd_dkv_tc_kernel<.*, false>",
-                       "diff_bwd_dkv_split_tc": r"diff_bwd_dkv_tc_kernel<.*, true>",
-                       "diff_fwd_cuda_core": r"attention_fwd_kernel<2,",
-                       "diff_bwd_cuda_core": r"attention_bwd_(dq_kernel<[^,<>]+, 2, \d+, false>|dkv_kernel<[^,<>]+, 2,)",
-                       "diff_bwd_one_launch": r"attention_bwd_dq_kernel<[^,<>]+, 2, \d+, true>"}
-# the kernels one bf16 call of each routed wrapper launches, by design
+# The kernels whose dtype picks their design, by their symbols: the
+# tensor-core designs that bf16 calls launch, K2's, K4's and K8's
+# (csrc/attention_tc.cuh), K1's, K5's, K3's, K7's and K6's
+# (csrc/diff_attention_tc.cuh; K7 runs K3's dq kernel and the dk/dv kernel
+# whose last template argument, SPLIT_DV, is true; K6 its own one-launch
+# kernel) and K12's forward (csrc/smallc_conv.cu); the CUDA-core instances of
+# csrc/attention_{fwd,bwd}_common.cuh (the forward's first template argument is
+# GROUPS, the backward's the dtype), GROUPS = 1 (K2, K4 and K8 in fp32) and
+# GROUPS = 2 (K1, K3, K5 and K7 in fp32; K6's one-launch instance), and K12's
+# CUDA-core forward (fp32 only, so never in a bf16 profile)
+KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attention_bwd_dq_tc_kernel<",
+                  "bwd_dkv_tc": r"attention_bwd_dkv_tc_kernel<",
+                  "bwd_fused_tc": r"attention_bwd_fused_tc_kernel<",
+                  "fwd_cuda_core": r"attention_fwd_kernel<1,",
+                  "bwd_cuda_core": r"attention_bwd_(dq|dkv)_kernel<[^,<>]+, 1,",
+                  "diff_fwd_tc": r"diff_fwd_tc_kernel<", "diff_bwd_dq_tc": r"diff_bwd_dq_tc_kernel<",
+                  "diff_bwd_dkv_tc": r"diff_bwd_dkv_tc_kernel<.*, false>",
+                  "diff_bwd_dkv_split_tc": r"diff_bwd_dkv_tc_kernel<.*, true>",
+                  "diff_bwd_one_tc": r"diff_bwd_one_tc_kernel<",
+                  "diff_fwd_cuda_core": r"attention_fwd_kernel<2,",
+                  "diff_bwd_cuda_core": r"attention_bwd_(dq_kernel<[^,<>]+, 2, \d+, false>|dkv_kernel<[^,<>]+, 2,)",
+                  "diff_bwd_one_launch": r"attention_bwd_dq_kernel<[^,<>]+, 2, \d+, true>",
+                  "conv_fwd_tc": r"conv_fwd_tc_kernel<",
+                  "conv_fwd_cuda_core": r"conv_fwd_kernel<"}
+# the kernels one bf16 call of each such wrapper launches, by design
 BF16_DESIGNS = {"attention_fwd": ("fwd_tc",), "attention_bwd": ("bwd_dq_tc", "bwd_dkv_tc"),
                 "diff_attention_interleaved_fwd": ("diff_fwd_tc",),
                 "diff_attention_interleaved_bwd": ("diff_bwd_dq_tc", "diff_bwd_dkv_tc"),
-                "diff_attention_fwd": ("diff_fwd_tc",), "diff_attention_bwd": ("diff_bwd_one_launch",),
+                "diff_attention_fwd": ("diff_fwd_tc",), "diff_attention_bwd": ("diff_bwd_one_tc",),
                 "diff_attention_bwd_split": ("diff_bwd_dq_tc", "diff_bwd_dkv_split_tc"),
-                "attention_bwd_fused": ("bwd_fused_tc",)}
+                "attention_bwd_fused": ("bwd_fused_tc",), "conv_small_c_fwd": ("conv_fwd_tc",)}
 
 
-def attention_designs(kernels):
-    """Calls and device ms of the attention kernels by design, from profiler events."""
+def kernel_designs(kernels):
+    """Calls and device ms of the kernels of ``KERNEL_DESIGNS`` by design, from profiler events."""
     return {role: {"calls": sum(e.count for e in kernels if re.search(pat, e.key)),
                    "ms": sum(e.self_device_time_total for e in kernels if re.search(pat, e.key)) / 1e3}
-            for role, pat in ATTN_KERNEL_DESIGNS.items()}
+            for role, pat in KERNEL_DESIGNS.items()}
 
 
 def expected_designs(per_unit):
@@ -1106,13 +1140,13 @@ def expected_designs(per_unit):
 
 
 def check_designs(designs, per_unit, where):
-    """Every attention design launched exactly as often as the bf16 launch
-    counts ``per_unit`` say, and no other: in particular no CUDA-core instance
-    of a kernel that bf16 sends to the tensor cores."""
+    """Every design launched exactly as often as the bf16 launch counts
+    ``per_unit`` say, and no other: in particular no CUDA-core instance of a
+    kernel that bf16 sends to the tensor cores."""
     want = expected_designs(per_unit)
     got = {r: d["calls"] for r, d in designs.items()}
-    check(all(got[r] == want[r] for r in ATTN_KERNEL_DESIGNS),
-          f"{where}: attention kernels by design {got}, expected {dict(want)} and no others")
+    check(all(got[r] == want[r] for r in KERNEL_DESIGNS),
+          f"{where}: kernels by design {got}, expected {dict(want)} and no others")
 
 
 def phase_profile(top: int = 12):
@@ -1132,9 +1166,9 @@ def phase_profile(top: int = 12):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    designs = attention_designs(kernels)
+    designs = kernel_designs(kernels)
     emit({"phase": "profile", "forward_ms": forward_ms, "device_busy_ms": busy_ms, "kernel_names": len(kernels),
-          "attention_designs": designs,
+          "kernel_designs": designs,
           "top": [{"name": e.key[:120], "calls": e.count, "ms": e.self_device_time_total / 1e3}
                   for e in kernels[:top]]})
     check_designs(designs, VOLUME_PER_CHUNK["interleaved"], "bf16 chunk profile")
@@ -1238,7 +1272,7 @@ def profile_step(trainer, images, labels, top=15):
     return {"step_wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms, "kernel_names": len(kernels),
             "kernel_launches": sum(e.count for e in kernels),
-            "attention_designs": attention_designs(kernels),
+            "kernel_designs": kernel_designs(kernels),
             "slice_backward": {"calls": sum(e.count for e in scatter),
                                "device_ms": sum(e.device_time_total for e in scatter) / 1e3},
             "top": [{"name": e.key[:120], "calls": e.count, "ms": e.self_device_time_total / 1e3}
@@ -1253,7 +1287,7 @@ def phase_train_profile(trainer, images, labels):
     to K4 run their tensor-core kernels."""
     prof = profile_step(trainer, images, labels)
     emit({"phase": "train_profile", **prof})
-    check_designs(prof["attention_designs"], TRAIN_PER_STEP["interleaved"], "bf16 train step profile")
+    check_designs(prof["kernel_designs"], TRAIN_PER_STEP["interleaved"], "bf16 train step profile")
 
 
 def phase_split_train(trainer, images, labels, steps=10, swap_backwards=False):
@@ -1261,9 +1295,10 @@ def phase_split_train(trainer, images, labels, steps=10, swap_backwards=False):
     step's ms over ``steps`` steps (CUDA events), their launch counts, and one
     profiled step (the attention kernels' device ms, the head-view gradient
     scatter) beside phase 7's, which must show every attention design exactly
-    as the launch counts say: K5 on K1's tensor-core kernel and K6's CUDA-core
-    kernel (phase 7b), or with ``swap_backwards`` K7's and K8's tensor-core
-    kernels and no CUDA-core instance of either (phase 7d). Returns the launch
+    as the launch counts say: K5 on K1's tensor-core kernel and K6's
+    tensor-core kernel and no CUDA-core instance of K6 (phase 7b), or with
+    ``swap_backwards`` K7's and K8's tensor-core kernels and no CUDA-core
+    instance of either (phase 7d). Returns the launch
     counts."""
     route = "split, K7 and K8" if swap_backwards else "split"
     with split_route(swap_backwards=swap_backwards):
@@ -1281,7 +1316,7 @@ def phase_split_train(trainer, images, labels, steps=10, swap_backwards=False):
     emit({"phase": "split_train", "route": route, "steps": steps,
           "resident_step_ms": start.elapsed_time(end) / steps, "launches": launched, "profile": prof})
     check_launches(launched, TRAIN_PER_STEP[route], steps, f"split train ({route}), {steps} steps")
-    check_designs(prof["attention_designs"], TRAIN_PER_STEP[route], f"split bf16 train step profile ({route})")
+    check_designs(prof["kernel_designs"], TRAIN_PER_STEP[route], f"split bf16 train step profile ({route})")
     return launched
 
 
@@ -1522,9 +1557,15 @@ def swap_site_rows(counts):
                     wr = w.to(dtype).float()  # the weights as the kernel rounds them
                     where = f"{shape} w {wshape} {label} {dname}"
                     if label != f"b{TRAIN_B}":
-                        r = close_check(SCK.conv_small_c_fwd(x, w, pad), SCK.conv_small_c_plain(x.float(), wr, pad),
-                                        dtype, f"conv_small_c_fwd {where}")
+                        y = SCK.conv_small_c_fwd(x, w, pad)
+                        r = close_check(y, SCK.conv_small_c_plain(x.float(), wr, pad), dtype,
+                                        f"conv_small_c_fwd {where}")
                         row.update({f"{label}_{dname}_{k_}": v for k_, v in r.items()})
+                        # every output element from one block: two runs give the same bits
+                        same = bool(torch.equal(y, SCK.conv_small_c_fwd(x, w, pad)))
+                        row[f"{label}_{dname}_repeat_bit_identical"] = same
+                        check(same, f"conv_small_c_fwd {where}: repeat runs differ")
+                        del y
                     if label != "chunk":
                         g = nhwc_input((b, shape[1], shape[2], cout), False, dtype, gen)
                         dx, dw = SCK.conv_small_c_bwd(x, w, g, pad)
@@ -1721,7 +1762,8 @@ def phase_swapped_train(trainer, images, labels, steps=10):
     """Phase 6's bf16 trainer on its resident batch with K9, K11 and K12 swapped
     in: step ms over ``steps`` steps (CUDA events), every loss finite, launch
     counts checked exactly, and one profiled step beside phase 7's, with the
-    same attention designs."""
+    same attention designs and K12's tensor-core forward as often as counted
+    (no bf16 instance of its CUDA-core forward)."""
     with swapped_ops():
         trainer.train_step(images, labels)  # warm-up
         torch.cuda.synchronize()
@@ -1740,7 +1782,7 @@ def phase_swapped_train(trainer, images, labels, steps=10):
           "losses": loss_values, "launches": launched, "profile": prof})
     check(all(np.isfinite(loss_values)), f"a swapped training loss is not finite: {loss_values}")
     check_launches(launched, TRAIN_PER_STEP["swapped"], steps, f"swapped train, {steps} steps")
-    check_designs(prof["attention_designs"], TRAIN_PER_STEP["swapped"], "swapped bf16 train step profile")
+    check_designs(prof["kernel_designs"], TRAIN_PER_STEP["swapped"], "swapped bf16 train step profile")
     return launched
 
 

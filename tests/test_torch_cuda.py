@@ -2,13 +2,14 @@
 
 Forward kernels (K1, K2, K5) on ``o`` and the LSE; backward kernels (K3, K4,
 K6, K7, K8) on their gradients and, for the diff kernels, dλ, with the limits
-of ``chip_smoke.py``. K1–K5, K7 and K8 run on the tensor cores in bf16 and on
-CUDA cores in fp32 (K5 is K1's kernel on split views, K7 K3's kernels with
-its own dv rounding), so their shapes include the edges of 64-row tiles and
-of 16-deep steps (N, M of 1, 63, 65, 196, 784 and 3136; d of 8, 16, 20 with
-dv = 2d, and d = dv = 64 and 128), the strided views that the DSEB
-projections and ``Nonlocal`` hand over, and bit-identity checks of K1, K3 and
-K7 (δ and dλ included), K4, and K8's dk and dv. Limits in max-abs
+of ``chip_smoke.py``. K1–K8 run on the tensor cores in bf16 and on CUDA cores
+in fp32 (K5 is K1's kernel on split views, K7 K3's kernels with its own dv
+rounding, K6 a one-launch kernel of its own), so their shapes include the
+edges of 64-row tiles and of 16-deep steps (N, M of 1, 63, 65, 127, 129, 196,
+784 and 3136; d of 8, 16, 20 with dv = 2d, and d = dv = 64 and 128), the
+strided views that the DSEB projections and ``Nonlocal`` hand over, and
+bit-identity checks of K1, K3 and K7 (δ and dλ included), K4, K6's dq, δ and
+dλ, and K8's dk and dv. Limits in max-abs
 and in norm: fp32 1e-4 of max |grad| and 1e-5 in norm (only the order of
 summation differs); bf16 two bf16 half-ulps of max |grad| (2·2^-8 in norm) plus
 the twin's own cost of rounding ds and p (or w) to bf16, measured the same way.
@@ -17,7 +18,9 @@ K9–K12 (RMSNorm, rotary, depthwise and small-channel convolution) against
 their twins: fp32 within 1e-5 of max |want| for the elementwise kernels (the
 card's rsqrtf and fused multiply-adds), and for the convolutions 1e-4 of max
 and 1e-5 in norm (order of summation); bf16 outputs within two bf16
-half-ulps of max |want| (2·2^-8), fp32 weight gradients as in fp32.
+half-ulps of max |want| (2·2^-8), fp32 weight gradients as in fp32. K12's
+bf16 forward (the tensor-core implicit GEMM) at every kernel size and input
+width of its domain, with its repeat-run bit-identity.
 
 Marked ``cuda``; each test skips without a CUDA device. This file imports no
 JAX, so it runs where only PyTorch is installed:
@@ -510,23 +513,27 @@ def test_cuda_split_backward_takes_dseb_views(cuda, dtype):
         _assert_split_grads(got, want, want_r, dtype, ("K7 DSEB views", b, n, h, d))
 
 
-def _split_bwd_with_deltas(groups, v, lam, lse1, lse2, do):
-    """K7's C entry as ``diff_attention_bwd_split`` calls it, returning the
-    per-row δ₁, δ₂ that its dq kernel writes besides the five gradients."""
+def _split_bwd_with_deltas(groups, v, lam, lse1, lse2, do, one_launch=False):
+    """K7's C entry as ``diff_attention_bwd_split`` calls it (with
+    ``one_launch``, K6's as ``diff_attention_bwd`` calls it: dk and dv summed
+    into zeroed fp32 buffers, returned in q's dtype), returning the per-row
+    δ₁, δ₂ that its dq kernel writes besides the five gradients."""
     from cenet_tpu_torch.ops import binding
 
     q1, k1, q2, k2 = groups
     b, h, n, d = q1.shape
     m, dv = k1.shape[2], v.shape[3]
     d1, d2 = (torch.empty((b, h, n), dtype=torch.float32, device=q1.device) for _ in range(2))
-    dq1, dk1, dq2, dk2, dvv = (torch.empty(shape, dtype=q1.dtype, device=q1.device)
-                               for shape in ((b, h, n, d), (b, h, m, d), (b, h, n, d), (b, h, m, d), (b, h, m, dv)))
-    rc = K._kernel("diff_attention_split_bwd_two_kernel", "cenet_diff_attention_split_bwd_two_kernel")(
+    dq1, dq2 = (torch.empty((b, h, n, d), dtype=q1.dtype, device=q1.device) for _ in range(2))
+    make, acc = (torch.zeros, torch.float32) if one_launch else (torch.empty, q1.dtype)
+    dk1, dk2, dvv = (make(shape, dtype=acc, device=q1.device) for shape in ((b, h, m, d), (b, h, m, d), (b, h, m, dv)))
+    source = "diff_attention_split_bwd" if one_launch else "diff_attention_split_bwd_two_kernel"
+    rc = K._kernel(source, f"cenet_{source}")(
         binding.is_bf16(q1), *binding.ptrs(q1, k1, q2, k2, v, do, lam, lse1, lse2, d1, d2, dq1, dk1, dq2, dk2, dvv),
         b, h, n, m, d, dv, *binding.strides(q1), *binding.strides(k1), *binding.strides(q2), *binding.strides(k2),
         *binding.strides(v), *binding.strides(do), binding.stream())
-    binding.raise_on("diff_attention_bwd_split", rc)
-    return dq1, dk1, dq2, dk2, dvv, d1, d2
+    binding.raise_on(source, rc)
+    return dq1, dk1.to(q1.dtype), dq2, dk2.to(q1.dtype), dvv.to(q1.dtype), d1, d2
 
 
 @pytest.mark.cuda
@@ -666,3 +673,84 @@ def test_cuda_smallc_conv_kernels_match_twins(cuda, dtype):
         grads.append([xb.grad.cpu(), wb.grad.cpu()])
     for a, w_ in zip(grads[1], grads[0]):
         assert (a - w_).abs().max() <= 1e-4 * float(w_.abs().max())
+
+
+# (b, h, n, m, d, dv): the tile edges of the tensor-core K6 (64 query rows a
+# block, 64-key tiles, 16-key blocks of its dk/dv partials): N and M of 63, 65,
+# 127 and 129, at DSEB1's head dims and at d = dv = 64; every B·h > 1
+K6_EDGE_SHAPES = [(2, 1, 63, 65, 8, 16), (1, 2, 65, 63, 8, 16), (1, 2, 127, 129, 8, 16), (2, 1, 129, 127, 8, 16),
+                  (2, 1, 63, 129, 64, 64), (1, 2, 129, 65, 64, 64), (2, 1, 127, 63, 64, 64), (1, 2, 65, 127, 64, 64)]
+
+
+@pytest.mark.cuda
+def test_cuda_k6_bf16_tile_edges_match_twin_and_k7(cuda):
+    """K6 in bf16 (the one-launch tensor-core design) at its tile edges, on
+    strided head views and a strided dO, and on the split head views of the
+    DSEB projections: the five gradients against the twin in max-abs and in
+    norm, dλ within 1e-4, and against K7 on the same inputs under the same
+    limits."""
+    g = torch.Generator().manual_seed(14)
+    lam = torch.tensor(0.37, device=cuda)
+    cases = [(_split_inputs(g, *shape, torch.bfloat16, cuda)[2:], shape) for shape in K6_EDGE_SHAPES]
+    for b, n, h, d in [(2, 150, 4, 20), (1, 196, 8, 8), (2, 65, 2, 16), (1, 784, 8, 16)]:
+        q, k, v, do = _dseb_views(g, b, n, h, d, torch.bfloat16, cuda)
+        cases.append(((v, do, (q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2])), ("DSEB views", b, n, h, d)))
+    for (v, do, groups), where in cases:
+        _, lse1, lse2 = K.diff_attention_fwd_plain(*(t.float() for t in groups), v.float(), lam)
+        want, want_r = _split_refs([t.contiguous() for t in groups], v.contiguous(), lam, lse1, lse2, do.contiguous())
+        got6 = K.diff_attention_bwd(*groups, v, lam, lse1, lse2, do)
+        got7 = K.diff_attention_bwd_split(*groups, v, lam, lse1, lse2, do)
+        torch.cuda.synchronize()
+        _assert_split_grads(got6, want, want_r, torch.bfloat16, ("K6", where))
+        _assert_split_grads(got6, [t.float() for t in got7], want_r, torch.bfloat16, ("K6 vs K7", where))
+
+
+@pytest.mark.cuda
+def test_cuda_k6_repeats_dq_delta_dlam(cuda):
+    """K6 in bf16 writes dq₁, dq₂ and the per-row δ₁, δ₂ from one block each, so
+    two runs on the same inputs give the same bits there and in dλ; dk₁, dk₂
+    and dv sum over query blocks with atomics and stay within the twin's
+    limits in both runs. At the DSEB1 and DSEB2 head dims."""
+    g = torch.Generator().manual_seed(15)
+    lam = torch.tensor(0.37, device=cuda)
+    for b, n, h, d in [(2, 3136, 8, 8), (2, 784, 8, 16)]:
+        q, k, v, do = _dseb_views(g, b, n, h, d, torch.bfloat16, cuda)
+        groups = (q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2])
+        _, lse1, lse2 = K.diff_attention_fwd(*groups, v, lam)
+        grads = [K.diff_attention_bwd(*groups, v, lam, lse1, lse2, do) for _ in range(2)]
+        deltas = [_split_bwd_with_deltas(groups, v, lam, lse1, lse2, do, one_launch=True) for _ in range(2)]
+        want, want_r = _split_refs([t.contiguous() for t in groups], v.contiguous(), lam, lse1, lse2, do.contiguous())
+        torch.cuda.synchronize()
+        for i in (0, 2, 5):  # dq1, dq2, dlam
+            assert torch.equal(grads[0][i], grads[1][i]), (i, b, n, h, d)
+        for a, b_ in zip(deltas[0][5:], deltas[1][5:]):  # delta1, delta2
+            assert torch.equal(a, b_), (b, n, h, d)
+        assert torch.equal(deltas[0][0], grads[0][0]) and torch.equal(grads[0][5], -deltas[0][6].sum())
+        for run in grads:
+            _assert_split_grads(run, want, want_r, torch.bfloat16, ("K6 repeat", b, n, h, d))
+
+
+@pytest.mark.cuda
+def test_cuda_smallc_conv_fwd_bf16_every_k_and_cin(cuda):
+    """K12's bf16 forward (the tensor-core implicit GEMM) at every kernel size
+    (3, 5, 7) and input width (8, 16, 32, 64) of its domain, on ragged maps of
+    at least 112², as NCHW views and channels-last, Cout from 8 to 256 (one or
+    several 32- or 64-channel blocks, the last one partial): within two bf16
+    half-ulps of max |want| of the twin, the output in x's memory order, and
+    bit-identical over two runs."""
+    g = torch.Generator().manual_seed(16)
+    couts = [8, 24, 32, 40, 64, 72, 136, 256]
+    for i, (k, cin) in enumerate([(k, c) for k in (3, 5, 7) for c in (8, 16, 32, 64)]):
+        cout = couts[i % len(couts)]
+        h, w = 112 + i % 3, 113 + 2 * (i % 4)
+        for channels_last in (False, True):
+            x = torch.randn(1, cin, h, w, generator=g).to(cuda, torch.bfloat16).permute(0, 2, 3, 1)
+            x = x.contiguous() if channels_last else x
+            w_hwio = (0.1 * torch.randn(cout, cin, k, k, generator=g)).to(cuda).permute(2, 3, 1, 0)
+            got, again = SC.conv_small_c_fwd(x, w_hwio, k // 2), SC.conv_small_c_fwd(x, w_hwio, k // 2)
+            want = SC.conv_small_c_plain(x, w_hwio, k // 2)
+            torch.cuda.synchronize()
+            where = ("fwd", k, cin, cout, h, w, channels_last)
+            assert got.stride() == SC._out_like(x, cout).stride(), where
+            _assert_close(got, want, torch.bfloat16, where)
+            assert torch.equal(got, again), where
