@@ -7,15 +7,23 @@
 // _dp_bwd does, so it needs no kernel of its own.
 //
 // Bound: bytes. Nine multiply-adds per output element against one element
-// read and one written; the nine taps re-read neighbours that the cache holds.
-// The TPU kernel keeps a whole padded (H, W, C) map in VMEM; here a thread
-// computes one output element and reads its taps straight from device memory,
-// masking the halo, so nothing is padded or copied. Both kernels take element
-// strides on every dim of x, g and the output, so the model's NCHW tensors
-// arrive as permute(0, 2, 3, 1) views without a copy. The thread order follows
-// the memory: with a unit channel stride (channels-last) consecutive threads
-// take consecutive channels, otherwise consecutive columns, so a warp's loads
-// and stores are contiguous in both layouts.
+// read and one written: the only gain is to move each byte once at full
+// width. The TPU kernel keeps a whole padded (H, W, C) map in VMEM. Both
+// kernels take element strides on every dim of x, g and the output, so the
+// model's NCHW tensors arrive as permute(0, 2, 3, 1) views without a copy.
+//
+// Forward, one design for both dtypes in two layouts, dilations 1-5 (a
+// template argument), all index arithmetic in 32 bits with divisions by
+// multiply-high (the wrapper checks that every offset fits):
+//   * channels-last (unit channel stride, 16-byte aligned channel vectors,
+//     e.g. the PVT DWConvs): threads along C with 16-byte vectors (8 bf16 or 4
+//     fp32 channels), each sliding a 3-row window along W over 8 outputs with
+//     its channels' taps in registers (dw3x3_cl_kernel);
+//   * any other strides (NCHW views): a block stages a strip of rows of one
+//     plane, or several whole small planes, with its halo in shared memory by
+//     16-byte (else 4-byte, else element) loads along W, and each thread
+//     computes 16 bytes' worth of adjacent outputs from registers and stores
+//     them with one 16-byte store where aligned (dw3x3_plane_kernel).
 //
 // dw sums over the batch and the map. On the TPU the sequential grid carries
 // that sum in the output block (_dw_kernel's "+="); blocks on the card run in
@@ -25,11 +33,15 @@
 // order. No atomics: repeat runs are bit-identical.
 //
 // Numerics as the Pallas bodies: x (or g) in its dtype, the taps in fp32, the
-// sum in fp32 over the taps in (dy, dx) order, one rounding to the output's
-// dtype; dw in fp32.
+// sum in fp32 over the taps in (dy, dx) order (taps outside the map add
+// zero), one rounding to the output's dtype; dw in fp32. Every output element
+// is written by one thread: repeat runs are bit-identical.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -43,34 +55,222 @@ struct Strides {
   long long b, h, w, c;
 };
 
-template <typename T, bool CFAST>
-__global__ void depthwise_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ out,
-                                     int bsz, int h, int wd, int c, int dil, Strides sx, Strides so, long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int ch, col, row;
-  long long b, r;
-  if (CFAST) {
-    ch = (int)(i % c); r = i / c;
-    col = (int)(r % wd); r /= wd;
-    row = (int)(r % h); b = r / h;
+// ---------------------------------------------------------------------------
+// The forward: tiled, vectorised, 32-bit indices
+// ---------------------------------------------------------------------------
+
+// Element offsets; the wrapper checks that every offset of x and out fits in
+// 31 bits.
+struct IStrides {
+  int b, h, w, c;
+};
+
+// n / d for n, d < 2^31 by multiply-high and shift (Granlund and Montgomery),
+// with the magic numbers made on the host: no division instruction.
+struct FastDiv {
+  unsigned m, s;
+};
+inline FastDiv fast_div(unsigned d) {
+  unsigned s = 0;
+  while ((1u << s) < d) ++s;
+  return {(unsigned)(((1ull << 32) * ((1ull << s) - d)) / d + 1), s};
+}
+__device__ __forceinline__ int fdiv(int n, FastDiv f) {
+  return (int)((__umulhi((unsigned)n, f.m) + (unsigned)n) >> f.s);
+}
+
+// 16 bytes: VEC = 8 bf16 or 4 fp32 elements
+template <typename T>
+struct VecOf {
+  static constexpr int N = 16 / sizeof(T);
+};
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& v, int e) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t word = (&v.x)[e >> 1];
+    return __uint_as_float((e & 1 ? word >> 16 : word & 0xffffu) << 16);
   } else {
-    col = (int)(i % wd); r = i / wd;
-    row = (int)(r % h); r /= h;
-    ch = (int)(r % c); b = r / c;
+    return __uint_as_float((&v.x)[e]);
   }
-  const T* xb = x + b * sx.b + ch * sx.c;
-  float acc = 0.f;
+}
+template <typename T>
+__device__ __forceinline__ uint4 pack(const float* a) {
+  uint4 v;
+  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int yy = row + (dy - 1) * dil;
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(a[2 * e], a[2 * e + 1]);
+      (&v.x)[e] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+  } else {
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int xx = col + (dx - 1) * dil;
-      if (yy >= 0 && yy < h && xx >= 0 && xx < wd) acc += to_f(xb[yy * sx.h + xx * sx.w]) * w[(dy * 3 + dx) * c + ch];
+    for (int e = 0; e < 4; ++e) (&v.x)[e] = __float_as_uint(a[e]);
+  }
+  return v;
+}
+__device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+constexpr int FWD_THREADS = 256;
+constexpr int MAX_PLANES = 64;  // planes a block of the plane kernel takes at most
+
+// NCHW views and any other strides. A block takes np (b, c) planes and the
+// output rows r0 .. r0 + rows - 1 of each (small maps: whole planes, several
+// to a block; large maps: a strip of rows of one plane). It stages the strip's
+// input rows with their DIL-row halo in shared memory, in x's dtype, each row
+// at a left offset L (a whole number of 16-byte vectors >= DIL) between zero
+// pads: 16-byte loads where a vector of a row lies inside it and is aligned,
+// 4-byte loads where it is 4-byte aligned (bf16), else element loads. Each
+// thread then computes V adjacent outputs of a row from registers: three rows'
+// windows of 16-byte shared loads, the plane's nine fp32 taps, the sums in
+// (dy, dx) order, one rounding, and a 16-byte store where aligned.
+template <typename T, int DIL, int V>
+__global__ void __launch_bounds__(FWD_THREADS) dw3x3_plane_kernel(const T* __restrict__ x,
+                                                                 const float* __restrict__ w, T* __restrict__ out,
+                                                                 int nplanes, int c, int h, int wd, int np, int rows,
+                                                                 int rpr, int pitch, FastDiv div_c, FastDiv div_nv,
+                                                                 FastDiv div_sr, FastDiv div_rpr, FastDiv div_rows,
+                                                                 IStrides sx, IStrides so) {
+  constexpr int VEC = VecOf<T>::N, L = VEC * ((DIL + VEC - 1) / VEC), NWV = (2 * L + V) / VEC;
+  static_assert(V % VEC == 0, "whole vectors of outputs");
+  extern __shared__ __align__(16) unsigned char plane_smem[];
+  T* buf = reinterpret_cast<T*>(plane_smem);  // [np][rows + 2 DIL][pitch]
+  __shared__ int xbase[MAX_PLANES], obase[MAX_PLANES];
+  __shared__ float taps[MAX_PLANES][9];
+  const int tid = threadIdx.x, pl0 = blockIdx.x * np, r0 = blockIdx.y * rows, sr_n = rows + 2 * DIL;
+  for (int p = tid; p < np; p += FWD_THREADS) {
+    const int pl = pl0 + p;
+    if (pl < nplanes) {
+      const int bb = fdiv(pl, div_c), cc = pl - bb * c;
+      xbase[p] = bb * sx.b + cc * sx.c;
+      obase[p] = bb * so.b + cc * so.c;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) taps[p][t] = w[t * c + cc];
+    } else {
+      xbase[p] = -1;
     }
   }
-  out[b * so.b + row * so.h + col * so.w + ch * so.c] = from_f<T>(acc);
+  __syncthreads();
+  const int nv = pitch / VEC;
+  for (int i = tid; i < np * sr_n * nv; i += FWD_THREADS) {
+    const int q = fdiv(i, div_nv), v = i - q * nv, p = fdiv(q, div_sr), sr = q - p * sr_n;
+    const int yy = r0 - DIL + sr, col0 = v * VEC - L;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (xbase[p] >= 0 && yy >= 0 && yy < h && col0 + VEC > 0 && col0 < wd) {
+      const T* src = x + xbase[p] + yy * sx.h + col0 * sx.w;
+      const bool inside = sx.w == 1 && col0 >= 0 && col0 + VEC <= wd;
+      if (inside && aligned16(src)) {
+        val = *reinterpret_cast<const uint4*>(src);
+      } else if (sizeof(T) == 2 && inside && (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) (&val.x)[e] = reinterpret_cast<const uint32_t*>(src)[e];
+      } else {
+        T* ev = reinterpret_cast<T*>(&val);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if (col0 + e >= 0 && col0 + e < wd) ev[e] = src[e * sx.w];
+      }
+    }
+    *reinterpret_cast<uint4*>(buf + (p * sr_n + sr) * pitch + v * VEC) = val;
+  }
+  __syncthreads();
+  for (int i = tid; i < np * rows * rpr; i += FWD_THREADS) {
+    const int q = fdiv(i, div_rpr), run = i - q * rpr, p = fdiv(q, div_rows), r = q - p * rows;
+    const int y = r0 + r, x0 = run * V;
+    if (xbase[p] < 0 || y >= h) continue;
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      // the row's window: buffer columns x0 .. x0 + 2L + V - 1 (map columns x0 - L ..)
+      const uint4* row = reinterpret_cast<const uint4*>(buf + (p * sr_n + r + dy * DIL) * pitch + x0);
+      uint4 win[NWV];
+#pragma unroll
+      for (int k = 0; k < NWV; ++k) win[k] = row[k];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float tap = taps[p][dy * 3 + dx];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const int col = L + e + (dx - 1) * DIL;
+          acc[e] = fmaf(elem<T>(win[col / VEC], col % VEC), tap, acc[e]);
+        }
+      }
+    }
+    T* dst = out + obase[p] + y * so.h + x0 * so.w;
+    if (so.w == 1 && x0 + V <= wd && aligned16(dst)) {
+#pragma unroll
+      for (int k = 0; k < V / VEC; ++k) reinterpret_cast<uint4*>(dst)[k] = pack<T>(acc + k * VEC);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (x0 + e < wd) dst[e * so.w] = from_f<T>(acc[e]);
+    }
+  }
+}
+
+// Channels-last (unit channel stride, 16-byte aligned channel vectors). A
+// thread takes one vector of VEC channels (8 bf16, 4 fp32) and XT adjacent
+// outputs of one row: consecutive threads take consecutive channel vectors,
+// so a warp's loads and stores are contiguous. It keeps the taps of its
+// channels in registers and slides a window of 3 rows x (2 DIL + 1) columns of
+// input vectors along W, loading one new column (three vectors) per output.
+template <typename T, int DIL, int XT>
+__global__ void __launch_bounds__(FWD_THREADS) dw3x3_cl_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                                                              T* __restrict__ out, int total, int c, int h, int wd,
+                                                              int cvecs, int col_tiles, FastDiv div_cv,
+                                                              FastDiv div_ct, FastDiv div_h, IStrides sx,
+                                                              IStrides so) {
+  constexpr int VEC = VecOf<T>::N, WC = 2 * DIL + 1;
+  const int i = blockIdx.x * FWD_THREADS + threadIdx.x;
+  if (i >= total) return;
+  int q = fdiv(i, div_cv);
+  const int cv = i - q * cvecs;
+  const int q2 = fdiv(q, div_ct), tx = q - q2 * col_tiles, b = fdiv(q2, div_h), y = q2 - b * h;
+  const int ch0 = cv * VEC, x0 = tx * XT;
+  float tp[9][VEC];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int k = 0; k < VEC / 4; ++k) {
+      const float4 v = reinterpret_cast<const float4*>(w + t * c + ch0)[k];
+      tp[t][4 * k] = v.x, tp[t][4 * k + 1] = v.y, tp[t][4 * k + 2] = v.z, tp[t][4 * k + 3] = v.w;
+    }
+  const T* xb = x + b * sx.b + ch0;
+  auto load = [&](int dy, int col) {
+    const int yy = y + (dy - 1) * DIL;
+    return yy >= 0 && yy < h && col >= 0 && col < wd
+               ? *reinterpret_cast<const uint4*>(xb + yy * sx.h + col * sx.w)
+               : make_uint4(0u, 0u, 0u, 0u);
+  };
+  // win[dy][k] holds column x - DIL + k of row y + (dy - 1) DIL for the output x
+  uint4 win[3][WC];
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int k = 1; k < WC; ++k) win[dy][k] = load(dy, x0 - DIL + k - 1);
+  T* ob = out + b * so.b + y * so.h + ch0;
+#pragma unroll
+  for (int j = 0; j < XT; ++j) {
+    const int xo = x0 + j;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+      for (int k = 0; k < WC - 1; ++k) win[dy][k] = win[dy][k + 1];
+      win[dy][WC - 1] = load(dy, xo + DIL);
+    }
+    if (xo >= wd) break;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(elem<T>(win[dy][dx * DIL], e), tp[dy * 3 + dx][e], acc[e]);
+    *reinterpret_cast<uint4*>(ob + xo * so.w) = pack<T>(acc);
+  }
 }
 
 constexpr int DW_THREADS = 256;
@@ -135,20 +335,81 @@ __global__ void depthwise_dw_reduce_kernel(const float* __restrict__ partial, fl
   dw[i] = s;
 }
 
+// The tilings launched: the plane kernel V = one 16-byte vector of outputs a
+// thread (two were 1.1-2.1x slower at the NCHW sites) and about TARGET_RUNS
+// runs of V outputs a block; the channels-last kernel XT = 8 outputs along W
+// a thread (time_tilings k11)
+constexpr int TARGET_RUNS = 512;
+template <typename T>
+struct FwdTiles {
+  static constexpr int V = VecOf<T>::N, XT = 8;
+};
+
+inline IStrides istrides(Strides s) { return {(int)s.b, (int)s.h, (int)s.w, (int)s.c}; }
+
+template <typename T, int DIL, int V>
+cudaError_t launch_plane(const T* x, const float* w, T* out, int b, int h, int wd, int c, Strides sx, Strides so,
+                         int target_runs, cudaStream_t stream) {
+  constexpr int VEC = VecOf<T>::N, L = VEC * ((DIL + VEC - 1) / VEC);
+  const int rpr = (wd + V - 1) / V, pitch = 2 * L + rpr * V, nplanes = b * c;
+  int rows = h, np = 1;
+  if (rpr * h <= target_runs) np = std::min(MAX_PLANES, std::max(1, target_runs / (rpr * h)));
+  else rows = std::max(1, target_runs / rpr);
+  constexpr int SMEM_MAX = 40 * 1024;  // of the 48 KB a launch takes without opting in, beside the static arrays
+  while (np > 1 && np * (rows + 2 * DIL) * pitch * (int)sizeof(T) > SMEM_MAX) --np;
+  while (rows > 1 && (rows + 2 * DIL) * pitch * (int)sizeof(T) > SMEM_MAX) rows = (rows + 1) / 2;
+  const int smem = np * (rows + 2 * DIL) * pitch * (int)sizeof(T);
+  // one row and its halo must fit: W up to about 900 (fp32) or 1800 (bf16) at DIL = 5
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  dim3 grid((nplanes + np - 1) / np, (h + rows - 1) / rows);
+  dw3x3_plane_kernel<T, DIL, V><<<grid, FWD_THREADS, smem, stream>>>(
+      x, w, out, nplanes, c, h, wd, np, rows, rpr, pitch, fast_div(c), fast_div(pitch / VEC),
+      fast_div(rows + 2 * DIL), fast_div(rpr), fast_div(rows), istrides(sx), istrides(so));
+  return cudaGetLastError();
+}
+
+template <typename T, int DIL, int XT>
+cudaError_t launch_cl(const T* x, const float* w, T* out, int b, int h, int wd, int c, Strides sx, Strides so,
+                      cudaStream_t stream) {
+  const int cvecs = c / VecOf<T>::N, col_tiles = (wd + XT - 1) / XT;
+  const long long total = (long long)b * h * col_tiles * cvecs;
+  if (total >= (1ll << 31)) return cudaErrorInvalidValue;
+  dw3x3_cl_kernel<T, DIL, XT><<<(unsigned)((total + FWD_THREADS - 1) / FWD_THREADS), FWD_THREADS, 0, stream>>>(
+      x, w, out, (int)total, c, h, wd, cvecs, col_tiles, fast_div(cvecs), fast_div(col_tiles), fast_div(h),
+      istrides(sx), istrides(so));
+  return cudaGetLastError();
+}
+
+// channels-last with 16-byte channel vectors on x, out and the taps
+template <typename T>
+bool channels_last(const void* x, const float* w, const void* out, int c, Strides sx, Strides so) {
+  constexpr int VEC = VecOf<T>::N;
+  auto vec = [](Strides s) { return s.c == 1 && s.b % VEC == 0 && s.h % VEC == 0 && s.w % VEC == 0; };
+  return vec(sx) && vec(so) && c % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+}
+
+template <typename T, int DIL, int V = FwdTiles<T>::V, int XT = FwdTiles<T>::XT>
+cudaError_t launch_fwd_dil(const void* x, const float* w, void* out, int b, int h, int wd, int c, Strides sx,
+                           Strides so, int target_runs, cudaStream_t stream) {
+  auto xt = static_cast<const T*>(x);
+  auto ot = static_cast<T*>(out);
+  if (channels_last<T>(x, w, out, c, sx, so)) return launch_cl<T, DIL, XT>(xt, w, ot, b, h, wd, c, sx, so, stream);
+  return launch_plane<T, DIL, V>(xt, w, ot, b, h, wd, c, sx, so, target_runs, stream);
+}
+
 template <typename T>
 cudaError_t launch_fwd(const void* x, const float* w, void* out, int b, int h, int wd, int c, int dil, Strides sx,
                        Strides so, cudaStream_t stream) {
-  const long long total = (long long)b * h * wd * c;
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  if (sx.c == 1)
-    depthwise_fwd_kernel<T, true><<<blocks, threads, 0, stream>>>(static_cast<const T*>(x), w, static_cast<T*>(out),
-                                                                   b, h, wd, c, dil, sx, so, total);
-  else
-    depthwise_fwd_kernel<T, false><<<blocks, threads, 0, stream>>>(static_cast<const T*>(x), w, static_cast<T*>(out),
-                                                                    b, h, wd, c, dil, sx, so, total);
-  return cudaGetLastError();
+  if ((long long)b * h * wd * c == 0) return cudaSuccess;
+  switch (dil) {
+    case 1: return launch_fwd_dil<T, 1>(x, w, out, b, h, wd, c, sx, so, TARGET_RUNS, stream);
+    case 2: return launch_fwd_dil<T, 2>(x, w, out, b, h, wd, c, sx, so, TARGET_RUNS, stream);
+    case 3: return launch_fwd_dil<T, 3>(x, w, out, b, h, wd, c, sx, so, TARGET_RUNS, stream);
+    case 4: return launch_fwd_dil<T, 4>(x, w, out, b, h, wd, c, sx, so, TARGET_RUNS, stream);
+    case 5: return launch_fwd_dil<T, 5>(x, w, out, b, h, wd, c, sx, so, TARGET_RUNS, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>

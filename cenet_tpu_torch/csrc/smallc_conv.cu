@@ -1,5 +1,5 @@
 // Stride-1 KxK convolution with SAME padding (K odd, 3-7) for small channel
-// counts: the forward, and the backward's dx and dw in one fused launch.
+// counts: the forward, and the backward's dx and dw.
 //
 // Replaces tools/negative_results/smallc_conv.py::_pallas_conv_fwd (body
 // _fwd_kernel) and _pallas_conv_bwd (body _bwd_kernel, dx and dw together).
@@ -36,12 +36,30 @@
 //         registers. The tensor cores take fp32 only as TF32, which would
 //         break the fp32 kernel's 1e-4 agreement with its twin.
 //
-// Backward, one launch with two kinds of blocks (CUDA cores, both dtypes):
-//   * dx blocks: the fp32 forward's tile code on the upstream gradient g with
-//     the flipped, in/out-swapped weights (valid because padding = K/2);
-//   * dw blocks: a block owns 8 input x 32 output channels, each thread one
-//     (ci, co) pair with its K*K sums, and walks a slice of 8x16 pixel tiles
-//     of the batch, staging the x patch and the g tile in shared memory.
+// Backward, dx = the forward on the upstream gradient g with the flipped,
+// in/out-swapped weights W' (valid because padding = K/2), and dw:
+//   bf16  dx by conv_fwd_tc_kernel on g with W' where Cout (its contraction's
+//         channels) is 8, 16, 32 or 64, else by the CUDA-core dx blocks (a
+//         shape rule); dw by conv_dw_tc_kernel, an implicit GEMM on the tensor
+//         cores: dW[(tap, ci), co] = sum over the batch's pixels of
+//         x_shift(tap)[p, ci] * g[p, co], M = K*K*Cin rows, N = Cout, the
+//         contraction over pixels. Both kernels read x and g channels-last:
+//         NCHW views are first copied so by to_channels_last_kernel (a dw
+//         kernel that transposed NCHW views inside its blocks with 2-byte
+//         loads took 0.92-0.94 ms at rb.0.conv2 at batch 8; on channels-last
+//         inputs with a cp.async pipeline it takes 0.17, time_tilings
+//         k12bwd). A dw block takes a slice of the m
+//         blocks and a slice of the pixel tiles (8 x 16); while it computes
+//         one tile, the next tile's x halo patch (pixel-major at the forward's
+//         channel pitch) and g tile [pixel][co] arrive by 16-byte cp.async
+//         into the other of two shared stages. A (rows (tap, ci) by 16 pixels)
+//         comes from the patch and B (16 pixels by co) from the g tile, both by
+//         ldmatrix.trans; each tile's mma sums go into the block's fp32
+//         running sums by plain adds. Launches: the copies, dx, dw, the sum.
+//   fp32  one launch with two kinds of CUDA-core blocks: dx blocks (the fp32
+//         forward's tile code on g with W') and dw blocks (a block owns 8
+//         input x 32 output channels, each thread one (ci, co) pair with its
+//         K*K sums, walking a slice of 8x16 pixel tiles of the batch).
 // The TPU kernel carries dw in a grid-constant output block; blocks on the
 // card run in no order, so each dw block writes its partial sums and a second
 // small kernel adds the partials of every weight in order: no atomics, repeat
@@ -49,7 +67,7 @@
 //
 // Numerics as the Pallas bodies: x (g) in its dtype, the weights rounded to
 // x's dtype by the wrapper (the JAX wrapper packs them in x's dtype; stored
-// as bf16 for the tensor-core forward, as fp32 elsewhere), products and sums
+// as bf16 for the tensor-core forward and dx, as fp32 elsewhere), products and sums
 // in fp32, one rounding of each output to x's dtype; dw in fp32. x, g and the
 // outputs are read and written through element strides on every dim (NHWC
 // shapes), so NCHW tensors arrive as permuted views without a copy. Every
@@ -273,19 +291,23 @@ cudaError_t fwd(const void* x, const float* w, void* out, int b, int h, int wd, 
   return cudaGetLastError();
 }
 
+// The CUDA-core backward: the dx blocks, then (parts > 0) the dw blocks of
+// `parts` slices of the pixel tiles
 template <typename T, int K>
-cudaError_t bwd(const void* x, const void* g, const float* wf, void* dx, float* partial, float* dw, int b, int h,
-                int wd, int cin, int cout, Strides sx, Strides sg, Strides sdx, int parts, cudaStream_t stream) {
+cudaError_t bwd(const void* x, const void* g, const float* wf, void* dx, float* partial, int b, int h, int wd,
+                int cin, int cout, Strides sx, Strides sg, Strides sdx, int parts, cudaStream_t stream) {
   const int n_dx = ((wd + TILE - 1) / TILE) * ((h + TILE - 1) / TILE) * ((cin + CO_T - 1) / CO_T) * b;
   const long long tiles = (long long)b * ((h + DW_TH - 1) / DW_TH) * ((wd + DW_TW - 1) / DW_TW);
-  const long long per = (tiles + parts - 1) / parts;
+  const long long per = parts > 0 ? (tiles + parts - 1) / parts : 0;
   const int n_dw = parts * ((cout + CO_T - 1) / CO_T) * (cin / DW_CI);
   conv_bwd_kernel<T, K><<<n_dx + n_dw, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), wf, static_cast<T*>(dx), partial, h, wd, cin, cout, b, sx,
       sg, sdx, n_dx, per);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long n = (long long)K * K * cin * cout;
+  return cudaGetLastError();
+}
+
+// dw = the sum of the parts' partials, in order
+cudaError_t sum_parts(const float* partial, float* dw, long long n, int parts, cudaStream_t stream) {
   sum_parts_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partial, dw, n, parts);
   return cudaGetLastError();
 }
@@ -301,12 +323,12 @@ cudaError_t fwd_k(int k, const void* x, const float* w, void* out, int b, int h,
 }
 
 template <typename T>
-cudaError_t bwd_k(int k, const void* x, const void* g, const float* wf, void* dx, float* partial, float* dw, int b,
-                  int h, int wd, int cin, int cout, Strides sx, Strides sg, Strides sdx, int parts, cudaStream_t st) {
+cudaError_t bwd_k(int k, const void* x, const void* g, const float* wf, void* dx, float* partial, int b, int h,
+                  int wd, int cin, int cout, Strides sx, Strides sg, Strides sdx, int parts, cudaStream_t st) {
   switch (k) {
-    case 3: return bwd<T, 3>(x, g, wf, dx, partial, dw, b, h, wd, cin, cout, sx, sg, sdx, parts, st);
-    case 5: return bwd<T, 5>(x, g, wf, dx, partial, dw, b, h, wd, cin, cout, sx, sg, sdx, parts, st);
-    case 7: return bwd<T, 7>(x, g, wf, dx, partial, dw, b, h, wd, cin, cout, sx, sg, sdx, parts, st);
+    case 3: return bwd<T, 3>(x, g, wf, dx, partial, b, h, wd, cin, cout, sx, sg, sdx, parts, st);
+    case 5: return bwd<T, 5>(x, g, wf, dx, partial, b, h, wd, cin, cout, sx, sg, sdx, parts, st);
+    case 7: return bwd<T, 7>(x, g, wf, dx, partial, b, h, wd, cin, cout, sx, sg, sdx, parts, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -530,6 +552,257 @@ cudaError_t fwd_tc_k(int k, const void* x, const void* w, void* out, int b, int 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 weight gradient on the tensor cores
+// ---------------------------------------------------------------------------
+
+// A dw block's tiling: NW warps of MBW m blocks (16 rows (tap, ci) of dW)
+// each; pixel tiles of TH rows of 16 pixels.
+template <int NW_, int MBW_, int TH_>
+struct DwTiles {
+  static constexpr int NW = NW_, MBW = MBW_, TH = TH_, TW = 16, THREADS = 32 * NW, MBLOCKS = NW * MBW;
+};
+
+template <int K, int CIN, int NT, class D>
+struct DwCfg {
+  static constexpr int CP = CIN == 8 ? 24 : CIN + 8;  // the forward's patch pitch
+  static constexpr int PH = D::TH + K - 1, PW = D::TW + K - 1;
+  static constexpr int NTP = NT + 8;  // a g tile row's pitch (ldmatrix.trans rows on distinct banks)
+  static constexpr int M = K * K * CIN;
+  static constexpr int MBT = (M + 15) / 16;  // m blocks of dW
+  static constexpr int STAGE = PH * PW * CP + D::TH * D::TW * NTP;  // one tile's patch and g tile
+  static constexpr int SMEM = 2 * 2 * STAGE;                        // two stages, bf16
+};
+
+// partial[part][(tap, ci), n0 .. n0+NT-1] = Σ over the pixels p of the tiles
+// [part * per, (part + 1) * per) of x_shift(tap)[p, ci] · g[p, co]: an implicit
+// GEMM with M = K * K * CIN rows (tap, ci), N = cout and the contraction over
+// the batch's pixels. x and g are channels-last with 16-byte aligned pixels
+// (the entry point transposes other layouts first). The block takes the m
+// blocks [blockIdx.y * mb_per_slice, ...) and walks its pixel tiles through
+// two shared stages: while it computes one tile, the next tile's x halo patch
+// (pixel-major at the forward's channel pitch) and g tile [pixel][co] arrive
+// by 16-byte cp.async. Each warp, for each 16-pixel row of the tile, reads the
+// row's B fragments (16 pixels x co) from the g tile and, for each of its m
+// blocks, the A fragment (16 rows (tap, ci) x the same 16 pixels, shifted by
+// the tap) from the patch, both by ldmatrix.trans. A tile's products are
+// summed by mma in fresh accumulators, which are then added to the block's
+// running sums by fp32 adds: the tensor cores' own accumulation is not
+// rounded to nearest, and chains of a few hundred of its steps drift, while a
+// tile's chain is TH steps.
+template <int K, int CIN, int NT, class D>
+__global__ void __launch_bounds__(D::THREADS) conv_dw_tc_kernel(const bf16* __restrict__ x,
+                                                                const bf16* __restrict__ g,
+                                                                float* __restrict__ partial, int h, int wd, int cout,
+                                                                int tiles_y, int tiles_x, int total_tiles, int per,
+                                                                int mb_per_slice, Strides sx, Strides sg) {
+  using Cf = DwCfg<K, CIN, NT, D>;
+  constexpr int CP = Cf::CP, PH = Cf::PH, PW = Cf::PW, NTP = Cf::NTP, PAD = K / 2, NB = NT / 8;
+  constexpr int MBW = D::MBW, NW = D::NW, TH = D::TH, NTH = D::THREADS;
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  bf16* const stages = reinterpret_cast<bf16*>(dw_smem);  // 2 x ([PH][PW][CP] patch, [TH * 16][NTP] g tile)
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, t = lane & 3;
+  const int part = blockIdx.x, n0 = blockIdx.z * NT;
+  const int mb_begin = blockIdx.y * mb_per_slice;
+  const int mb_end = min(mb_begin + mb_per_slice, Cf::MBT);
+
+  // tile `tile`'s patch and g tile into stage s by cp.async (zeros outside the
+  // map and past cout), one commit group
+  auto issue = [&](int tile, int s) {
+    bf16* Ps = stages + s * Cf::STAGE;
+    bf16* Gs = Ps + PH * PW * CP;
+    const int tx = tile % tiles_x, r = tile / tiles_x, ty = r % tiles_y, b = r / tiles_y;
+    const int y0 = ty * TH, x0 = tx * 16;
+    const bf16* xb = x + b * sx.b;
+    constexpr int XC = CIN / 8;
+    for (int i = threadIdx.x; i < PH * PW * XC; i += NTH) {
+      const int c = (i % XC) * 8, pix = i / XC, gy = y0 - PAD + pix / PW, gx = x0 - PAD + pix % PW;
+      bf16* dst = Ps + pix * CP + c;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < wd) tc::cp_async16(dst, xb + gy * sx.h + gx * sx.w + c);
+      else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    const bf16* gb = g + b * sg.b;
+    constexpr int GC = NT / 8;
+    for (int i = threadIdx.x; i < TH * 16 * GC; i += NTH) {
+      const int c = (i % GC) * 8, pix = i / GC, y = y0 + pix / 16, xq = x0 + pix % 16;
+      bf16* dst = Gs + pix * NTP + c;
+      if (y < h && xq < wd && n0 + c < cout) tc::cp_async16(dst, gb + y * sg.h + xq * sg.w + n0 + c);
+      else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    tc::cp_async_commit();
+  };
+
+  // ldmatrix.trans tiles of an A fragment: rows (tap, ci) 0-7 | 8-15 by pixels
+  // 0-7 | 8-15; this lane's row address in the patch for each of its m blocks
+  // (rows past M read row 0: their sums are never stored)
+  int a_off[MBW];
+  bool live[MBW];
+#pragma unroll
+  for (int j = 0; j < MBW; ++j) {
+    const int mb = mb_begin + warp + j * NW;
+    live[j] = mb < mb_end;
+    int m = mb * 16 + ((lane >> 3) & 1) * 8;
+    if (m >= Cf::M) m = 0;
+    const int tap = m / CIN, ci = m % CIN, pix = (lane & 7) + (lane >> 4) * 8;
+    a_off[j] = ((tap / K) * PW + tap % K + pix) * CP + ci;
+  }
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * NTP + (lane >> 4) * 8;
+
+  float sum[MBW][NB][4] = {};
+  const int t_begin = part * per, t_end = min(t_begin + per, total_tiles);
+  if (t_begin < t_end) issue(t_begin, 0);
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int s = (tile - t_begin) & 1;
+    tc::cp_async_wait<0>();  // this tile has landed (this thread's copies) ...
+    __syncthreads();         // ... for every thread, and every warp is done with the other stage
+    if (tile + 1 < t_end) issue(tile + 1, s ^ 1);
+    const bf16* Ps = stages + s * Cf::STAGE;
+    const bf16* Gs = Ps + PH * PW * CP;
+    const int rows = min(TH, h - ((tile / tiles_x) % tiles_y) * TH);  // rows past the map hold g = 0
+    float acc[MBW][NB][4] = {};
+    for (int py = 0; py < rows; ++py) {
+      uint32_t bfr[NB / 2][4];
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) tc::ldsm_x4_trans(bfr[n2], Gs + py * 16 * NTP + b_off + n2 * 16);
+      const bf16* prow = Ps + py * PW * CP;
+#pragma unroll
+      for (int j = 0; j < MBW; ++j) {
+        if (!live[j]) continue;
+        uint32_t a[4];
+        tc::ldsm_x4_trans(a, prow + a_off[j]);
+#pragma unroll
+        for (int n2 = 0; n2 < NB / 2; ++n2) {
+          tc::mma_bf16(acc[j][2 * n2], a, bfr[n2][0], bfr[n2][1]);
+          tc::mma_bf16(acc[j][2 * n2 + 1], a, bfr[n2][2], bfr[n2][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < MBW; ++j)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[j][nb][i] += acc[j][nb][i];
+  }
+  tc::cp_async_wait<0>();
+
+  // rows gq, gq + 8 of each m block are dW rows (tap, ci); columns n0 + 8 nb +
+  // 2t, + 1 output channels. Every row and column of the part is written.
+  float* pb = partial + (long long)part * Cf::M * cout;
+#pragma unroll
+  for (int j = 0; j < MBW; ++j) {
+    if (!live[j]) continue;
+    const int mb = mb_begin + warp + j * NW;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int co = n0 + nb * 8 + 2 * t;
+      if (co >= cout) continue;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = mb * 16 + gq + 8 * i;
+        if (m < Cf::M) *reinterpret_cast<float2*>(pb + m * cout + co) = make_float2(sum[j][nb][2 * i], sum[j][nb][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// out (B, H, W, C) contiguous = in (B, H, W, C) by element strides, bf16: 32
+// pixels x 32 channels a block through a shared tile, so that the loads run
+// along W of a channel plane (NCHW views) and the stores along C.
+__global__ void __launch_bounds__(256) to_channels_last_kernel(const bf16* __restrict__ in, bf16* __restrict__ out,
+                                                               int hw, int wd, int c, Strides s) {
+  __shared__ unsigned short tile[32][33];
+  const int p0 = blockIdx.x * 32, c0 = blockIdx.y * 32, b = blockIdx.z, tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const bf16* ib = in + b * s.b;
+  for (int j = ty; j < 32; j += 8) {
+    const int p = p0 + tx, cc = c0 + j;
+    if (p < hw && cc < c) {
+      const int y = p / wd, xq = p - y * wd;
+      tile[j][tx] = __bfloat16_as_ushort(ib[y * s.h + xq * s.w + cc * s.c]);
+    }
+  }
+  __syncthreads();
+  bf16* ob = out + (long long)b * hw * c;
+  for (int j = ty; j < 32; j += 8) {
+    const int p = p0 + j, cc = c0 + tx;
+    if (p < hw && cc < c) ob[(long long)p * c + cc] = __ushort_as_bfloat16(tile[tx][j]);
+  }
+}
+
+// t, or its channels-last copy in `scratch` (written here) where t is not
+// channels-last with 16-byte aligned pixels; s becomes the copy's strides
+inline cudaError_t channels_last(const void*& t, Strides& s, void* scratch, int b, int h, int wd, int c,
+                                 cudaStream_t stream) {
+  if (vec_in(t, s)) return cudaSuccess;
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  dim3 grid((h * wd + 31) / 32, (c + 31) / 32, b);
+  to_channels_last_kernel<<<grid, 256, 0, stream>>>(static_cast<const bf16*>(t), static_cast<bf16*>(scratch), h * wd,
+                                                     wd, c, s);
+  t = scratch;
+  s = Strides{(long long)h * wd * c, (long long)wd * c, c, 1};
+  return cudaGetLastError();
+}
+
+// The tilings launched: 8 warps, pixel tiles of 8 x 16; 2 m blocks a warp at
+// 32 output channels a block, 1 at 64; partials for about two blocks an SM
+// (ops/smallc_conv.py::bwd_parts). 4 and 2 m blocks (fewer slices of dW's
+// rows to stage each tile for) or 16-row tiles were 7-20% slower at
+// rb.0.conv2 and up.1 (time_tilings k12bwd).
+template <int NT>
+using ConvDwTiles = DwTiles<8, NT == 32 ? 2 : 1, 8>;
+
+// x, g channels-last with 16-byte aligned pixels
+template <int K, int CIN, int NT, class D = ConvDwTiles<NT>>
+cudaError_t dw_tc(const void* x, const void* g, float* partial, int b, int h, int wd, int cout, Strides sx,
+                  Strides sg, int parts, cudaStream_t stream) {
+  using Cf = DwCfg<K, CIN, NT, D>;
+  if (cout % 8 != 0 || parts < 1 || !vec_in(x, sx) || !vec_in(g, sg)) return cudaErrorInvalidValue;
+  auto kernel = conv_dw_tc_kernel<K, CIN, NT, D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (wd + D::TW - 1) / D::TW, tiles_y = (h + D::TH - 1) / D::TH, total = b * tiles_y * tiles_x;
+  const int per = (total + parts - 1) / parts;
+  // the m blocks cut into equal slices of at most MBLOCKS
+  const int slices = (Cf::MBT + D::MBLOCKS - 1) / D::MBLOCKS, mb_per_slice = (Cf::MBT + slices - 1) / slices;
+  dim3 grid(parts, slices, (cout + NT - 1) / NT);
+  kernel<<<grid, D::THREADS, Cf::SMEM, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(g), partial,
+                                                 h, wd, cout, tiles_y, tiles_x, total, per, mb_per_slice, sx, sg);
+  return cudaGetLastError();
+}
+
+template <int K, int CIN>
+cudaError_t dw_tc_n(const void* x, const void* g, float* partial, int b, int h, int wd, int cout, Strides sx,
+                    Strides sg, int parts, cudaStream_t st) {
+  return cout <= 32 ? dw_tc<K, CIN, 32>(x, g, partial, b, h, wd, cout, sx, sg, parts, st)
+                    : dw_tc<K, CIN, 64>(x, g, partial, b, h, wd, cout, sx, sg, parts, st);
+}
+
+template <int K>
+cudaError_t dw_tc_c(const void* x, const void* g, float* partial, int b, int h, int wd, int cin, int cout,
+                    Strides sx, Strides sg, int parts, cudaStream_t st) {
+  switch (cin) {
+    case 8: return dw_tc_n<K, 8>(x, g, partial, b, h, wd, cout, sx, sg, parts, st);
+    case 16: return dw_tc_n<K, 16>(x, g, partial, b, h, wd, cout, sx, sg, parts, st);
+    case 32: return dw_tc_n<K, 32>(x, g, partial, b, h, wd, cout, sx, sg, parts, st);
+    case 64: return dw_tc_n<K, 64>(x, g, partial, b, h, wd, cout, sx, sg, parts, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dw_tc_k(int k, const void* x, const void* g, float* partial, int b, int h, int wd, int cin, int cout,
+                    Strides sx, Strides sg, int parts, cudaStream_t st) {
+  switch (k) {
+    case 3: return dw_tc_c<3>(x, g, partial, b, h, wd, cin, cout, sx, sg, parts, st);
+    case 5: return dw_tc_c<5>(x, g, partial, b, h, wd, cin, cout, sx, sg, parts, st);
+    case 7: return dw_tc_c<7>(x, g, partial, b, h, wd, cin, cout, sx, sg, parts, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The channel counts of the tensor-core forward's contraction (its CIN)
+inline bool tc_channels(int c) { return c == 8 || c == 16 || c == 32 || c == 64; }
+
 }  // namespace
 
 // x (B, H, W, Cin) and out (B, H, W, Cout) by element strides; w (K, K, Cin,
@@ -546,19 +819,39 @@ extern "C" int cenet_smallc_conv_fwd(int is_bf16, const void* x, const void* w, 
 }
 
 // x (B, H, W, Cin), g (B, H, W, Cout), dx (B, H, W, Cin) by element strides;
-// wf fp32 (K, K, Cout, Cin) contiguous: the weights flipped in space, in and
-// out swapped, rounded to x's dtype; partial (parts, K, K, Cin, Cout) fp32
-// scratch; dw (K, K, Cin, Cout) fp32.
+// wf (K, K, Cout, Cin) contiguous: the weights flipped in space, in and out
+// swapped, rounded to x's dtype; partial (parts, K, K, Cin, Cout) fp32
+// scratch; dw (K, K, Cin, Cout) fp32. Launches by dtype and shape:
+//   bf16  x and g are first copied channels-last into x_cl, g_cl (B, H, W, C)
+//         bf16 scratch where they are not channels-last with 16-byte aligned
+//         pixels (null where they are). dx on the tensor cores
+//         (conv_fwd_tc_kernel on g with wf, stored as bf16, 16-byte aligned)
+//         where Cout is one of its channel counts {8, 16, 32, 64}; for any
+//         other Cout of the domain (Cout % 8 == 0, up to 256) the CUDA-core dx
+//         blocks with wf stored as fp32: a shape rule, not a fallback. dw on
+//         the tensor cores (conv_dw_tc_kernel);
+//   fp32  dx and dw on CUDA cores in one launch (conv_bwd_kernel), wf fp32;
+// then the ordered sum of the dw partials.
 extern "C" int cenet_smallc_conv_bwd(int is_bf16, const void* x, const void* g, const void* wf, void* dx,
-                                     void* partial, void* dw, int b, int h, int wd, int cin, int cout, int k,
-                                     long long sxb, long long sxh, long long sxw, long long sxc, long long sgb,
-                                     long long sgh, long long sgw, long long sgc, long long sdb, long long sdh,
-                                     long long sdw, long long sdc, int parts, void* stream) {
+                                     void* partial, void* dw, void* x_cl, void* g_cl, int b, int h, int wd, int cin,
+                                     int cout, int k, long long sxb, long long sxh, long long sxw, long long sxc,
+                                     long long sgb, long long sgh, long long sgw, long long sgc, long long sdb,
+                                     long long sdh, long long sdw, long long sdc, int parts, void* stream) {
   Strides sx{sxb, sxh, sxw, sxc}, sg{sgb, sgh, sgw, sgc}, sdx{sdb, sdh, sdw, sdc};
   auto st = static_cast<cudaStream_t>(stream);
-  auto w = static_cast<const float*>(wf);
   auto p = static_cast<float*>(partial);
-  auto d = static_cast<float*>(dw);
-  return is_bf16 ? (int)bwd_k<__nv_bfloat16>(k, x, g, w, dx, p, d, b, h, wd, cin, cout, sx, sg, sdx, parts, st)
-                 : (int)bwd_k<float>(k, x, g, w, dx, p, d, b, h, wd, cin, cout, sx, sg, sdx, parts, st);
+  auto wff = static_cast<const float*>(wf);
+  cudaError_t err;
+  if (is_bf16) {
+    err = channels_last(x, sx, x_cl, b, h, wd, cin, st);
+    if (err == cudaSuccess) err = channels_last(g, sg, g_cl, b, h, wd, cout, st);
+    if (err != cudaSuccess) return (int)err;
+    err = tc_channels(cout) ? fwd_tc_k(k, g, wf, dx, b, h, wd, cout, cin, sg, sdx, st)
+                            : bwd_k<__nv_bfloat16>(k, x, g, wff, dx, p, b, h, wd, cin, cout, sx, sg, sdx, 0, st);
+    if (err == cudaSuccess) err = dw_tc_k(k, x, g, p, b, h, wd, cin, cout, sx, sg, parts, st);
+  } else {
+    err = bwd_k<float>(k, x, g, wff, dx, p, b, h, wd, cin, cout, sx, sg, sdx, parts, st);
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_parts(p, static_cast<float*>(dw), (long long)k * k * cin * cout, parts, st);
 }

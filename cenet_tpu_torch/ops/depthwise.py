@@ -10,8 +10,9 @@ dw the dw kernel (fp32, cast to w's dtype).
 
 Domain. The JAX router takes the Pallas kernel on a TPU when the padded map
 fits VMEM and H, W ≥ 2. VMEM is TPU memory; on the card every CUDA tensor with
-H, W ≥ 2 takes the kernel, and smaller maps are ``F.conv2d`` (the counterpart
-of ``_lax_depthwise``, a shape rule, not a fallback). The JAX router's
+H, W ≥ 2 and a dilation of 1–5 (the forward kernel's instances; the model
+uses 1–5) takes the kernels, and other shapes are ``F.conv2d`` (the
+counterpart of ``_lax_depthwise``, a shape rule, not a fallback). The JAX router's
 ``try``/``except`` is not carried over: a CUDA tensor in the domain reaches
 the kernel or raises. A CPU tensor takes the twins.
 
@@ -35,6 +36,7 @@ from cenet_tpu_torch.ops import binding
 _FWD_ARGTYPES = [binding.I] + [binding.P] * 3 + [binding.I] * 5 + [binding.L] * 8 + [binding.P]
 _DW_ARGTYPES = [binding.I] + [binding.P] * 4 + [binding.I] * 5 + [binding.L] * 8 + [binding.I, binding.P]
 _DW_THREADS = 256  # csrc/depthwise_conv.cu: DW_THREADS
+DILATIONS = range(1, 6)  # csrc/depthwise_conv.cu: the forward's instances
 _TARGET_BLOCKS = 4 * 132  # about four blocks per SM of an H100 for the dw pass
 
 
@@ -69,6 +71,11 @@ def depthwise_dw_plain(x: torch.Tensor, g: torch.Tensor, dilation: int = 1) -> t
     return dw.reshape(3, 3, x.shape[-1])
 
 
+def _last_offset(t: torch.Tensor) -> int:
+    """The largest element offset of ``t`` from its first element."""
+    return sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+
+
 def _check(name: str, x: torch.Tensor, other: torch.Tensor, oname: str) -> None:
     binding.check_cuda_dtype(name, {"x": x, oname: other}, x.dtype)
     if x.ndim != 4 or tuple(other.shape) != tuple(x.shape):
@@ -83,10 +90,13 @@ def depthwise_fwd(x: torch.Tensor, w: torch.Tensor, dilation: int = 1) -> torch.
     name = "depthwise_fwd"
     binding.check_cuda_dtype(name, {"x": x}, x.dtype)
     c = x.shape[-1]
-    if x.ndim != 4 or w.numel() != 9 * c or not w.is_cuda:
-        raise ValueError(f"{name}: x {tuple(x.shape)} with weights {tuple(w.shape)} on {w.device}")
+    if x.ndim != 4 or w.numel() != 9 * c or not w.is_cuda or dilation not in DILATIONS:
+        raise ValueError(f"{name}: x {tuple(x.shape)} with weights {tuple(w.shape)} on {w.device}, "
+                         f"dilation {dilation}")
     taps = _taps(w).float().contiguous()
     out = torch.empty_like(x)
+    if max(_last_offset(x), _last_offset(out)) >= 2**31:
+        raise ValueError(f"{name}: x {tuple(x.shape)} strides {x.stride()} pass 32-bit element offsets")
     b, h, wd, _ = x.shape
     rc = binding.kernel("depthwise_conv", "cenet_depthwise_fwd", _FWD_ARGTYPES)(
         binding.is_bf16(x), *binding.ptrs(x, taps, out), b, h, wd, c, dilation, *binding.strides(x, 4),
@@ -145,10 +155,10 @@ class DepthwiseConvFn(torch.autograd.Function):
 
 def depthwise_conv3x3(x: torch.Tensor, w: torch.Tensor, dilation: int = 1) -> torch.Tensor:
     """Depthwise 3×3, stride 1, padding = dilation, NHWC x, HWIO ``(3, 3, 1, C)``
-    weights: the kernels for H, W ≥ 2 (through :class:`DepthwiseConvFn` when
-    autograd records), ``F.conv2d`` for smaller maps."""
+    weights: the kernels for H, W ≥ 2 and dilations 1–5 (through
+    :class:`DepthwiseConvFn` when autograd records), ``F.conv2d`` otherwise."""
     h, wd, c = x.shape[1], x.shape[2], x.shape[3]
-    if h < 2 or wd < 2:
+    if h < 2 or wd < 2 or dilation not in DILATIONS:
         y = tF.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1), padding=dilation,
                       dilation=dilation, groups=c)
         return y.permute(0, 2, 3, 1)

@@ -6,8 +6,11 @@ padding k//2). Its kernels replace ``_pallas_conv_fwd`` and
 ``_pallas_conv_bwd`` (source ``csrc/smallc_conv.cu``): for the forward an
 implicit GEMM on the tensor cores in bf16 (``mma.sync``, fp32 sums) and a
 direct convolution on CUDA cores in fp32, which the tensor cores take only as
-TF32; for the backward one fused launch for dx and dw on CUDA cores (plus the
-ordered sum of the dw partials). :class:`ConvSmallCFn` is
+TF32; for the backward in bf16 dx on the forward's tensor-core kernel and dw
+as an implicit GEMM on the tensor cores (both reading channels-last copies of
+x and g that the source's transpose kernel makes in wrapper-allocated scratch
+where the inputs are NCHW views), in fp32 one fused launch for dx and dw on
+CUDA cores, then the ordered sum of the dw partials. :class:`ConvSmallCFn` is
 ``_conv_small_c_pallas``'s custom_vjp.
 
 Domain: the conditions of ``conv_small_c``'s ``ok`` that define the function
@@ -37,15 +40,23 @@ import torch.nn.functional as tF
 from cenet_tpu_torch.ops import binding
 
 _FWD_ARGTYPES = [binding.I] + [binding.P] * 3 + [binding.I] * 6 + [binding.L] * 8 + [binding.P]
-_BWD_ARGTYPES = [binding.I] + [binding.P] * 6 + [binding.I] * 6 + [binding.L] * 12 + [binding.I, binding.P]
+_BWD_ARGTYPES = [binding.I] + [binding.P] * 8 + [binding.I] * 6 + [binding.L] * 12 + [binding.I, binding.P]
 _CINS = (8, 16, 32, 64)
-# csrc/smallc_conv.cu: the dw blocks' tile (8 x 16 pixels), channels per block
+# csrc/smallc_conv.cu: the CUDA-core dw blocks' tile (8 x 16 pixels), channels
+# per block; the tensor-core dw blocks' pixel tile and m blocks (16 rows (tap,
+# ci) of dW) per block at 32 and 64 output channels a block (ConvDwTiles)
 _DW_TH, _DW_TW, _DW_CI, _CO_T = 8, 16, 8, 32
-_TARGET_DW_BLOCKS = 4 * 132  # about four dw blocks per SM of an H100
+_TC_DW_TH, _TC_DW_MBLOCKS = 8, {32: 16, 64: 8}
+_TARGET_DW_BLOCKS = 4 * 132  # about four CUDA-core dw blocks per SM of an H100
+_TARGET_TC_DW_BLOCKS = 2 * 132  # about two tensor-core dw blocks per SM
 
 
 def in_domain(x_shape, w_shape, padding: int, stride: int = 1) -> bool:
-    """Whether ``conv_small_c`` computes on the kernels (shapes NHWC and HWIO)."""
+    """Whether ``conv_small_c`` computes on the kernels (shapes NHWC and HWIO).
+
+    Inside it, a bf16 backward takes dx on the tensor cores where Cout is one of
+    the forward kernel's contraction widths (8, 16, 32, 64) and on the CUDA-core
+    dx blocks for any other Cout (:func:`dx_on_tensor_cores`), a shape rule."""
     _, h, wd, cin = x_shape
     kh, kw, wcin, cout = w_shape
     return (stride == 1 and kh == kw and kh % 2 == 1 and 3 <= kh <= 7 and padding == kh // 2 and wcin == cin
@@ -92,6 +103,12 @@ def _out_like(x: torch.Tensor, channels: int) -> torch.Tensor:
     return torch.empty((b, channels, h, wd), dtype=x.dtype, device=x.device).permute(0, 2, 3, 1)
 
 
+def _channels_last_aligned(t: torch.Tensor) -> bool:
+    """Channels-last with 16-byte aligned pixels, as the bf16 backward's
+    tensor-core kernels read x and g (csrc/smallc_conv.cu: vec_in)."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+
+
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, padding: int) -> None:
     binding.check_cuda_dtype(name, {"x": x}, x.dtype)
     if x.ndim != 4 or w.ndim != 4 or not w.is_cuda or not in_domain(tuple(x.shape), tuple(w.shape), padding):
@@ -121,18 +138,33 @@ def conv_small_c_fwd(x: torch.Tensor, w: torch.Tensor, padding: int) -> torch.Te
     return out
 
 
-def bwd_parts(x_shape, cout: int) -> int:
-    """How many slices of the pixel tiles the dw blocks cut (one partial each)."""
+def dx_on_tensor_cores(dtype: torch.dtype, cout: int) -> bool:
+    """Whether the backward's dx runs on the tensor-core forward (bf16, Cout one
+    of its contraction widths); csrc/smallc_conv.cu applies the same rule."""
+    return dtype == torch.bfloat16 and cout in _CINS
+
+
+def bwd_parts(x_shape, k: int, cout: int, dtype: torch.dtype = torch.float32) -> int:
+    """How many slices of the pixel tiles the dw blocks cut (one partial each),
+    enough blocks to fill the card: the CUDA-core dw blocks (fp32) or the
+    tensor-core ones (bf16), each part taking every slice of dW's rows."""
     b, h, wd, cin = x_shape
-    tiles = b * -(-h // _DW_TH) * -(-wd // _DW_TW)
-    per_part = -(-cout // _CO_T) * (cin // _DW_CI)
-    return max(1, min(tiles, -(-_TARGET_DW_BLOCKS // per_part)))
+    if dtype == torch.bfloat16:
+        nt = 32 if cout <= 32 else 64
+        m_blocks = -(-k * k * cin // 16)
+        per_part = -(-m_blocks // _TC_DW_MBLOCKS[nt]) * -(-cout // nt)
+        tiles, target = b * -(-h // _TC_DW_TH) * -(-wd // 16), _TARGET_TC_DW_BLOCKS
+    else:
+        per_part = -(-cout // _CO_T) * (cin // _DW_CI)
+        tiles, target = b * -(-h // _DW_TH) * -(-wd // _DW_TW), _TARGET_DW_BLOCKS
+    return max(1, min(tiles, -(-target // per_part)))
 
 
 def conv_small_c_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, padding: int):
-    """The fused backward kernel: ``(dx, dw)`` for upstream gradient ``g`` (NHWC,
-    any strides); dx in x's dtype and memory order, dw in w's dtype, summed in
-    fp32 without atomics (repeat runs are bit-identical)."""
+    """The backward kernels: ``(dx, dw)`` for upstream gradient ``g`` (NHWC, any
+    strides); dx in x's dtype and memory order, dw in w's dtype, summed in fp32
+    without atomics (repeat runs are bit-identical). One count per call, for the
+    dx, dw and partial-sum launches together."""
     if x.device.type == "cpu":
         return conv_small_c_bwd_plain(x, w, g, padding)
     name = "conv_small_c_bwd"
@@ -142,13 +174,23 @@ def conv_small_c_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, padding:
     k, cout = w.shape[0], w.shape[3]
     if tuple(g.shape) != (b, h, wd, cout):
         raise ValueError(f"{name}: g {tuple(g.shape)} does not fit x {tuple(x.shape)} and w {tuple(w.shape)}")
-    wflip = w.to(x.dtype).float().flip(0, 1).transpose(2, 3).contiguous()
-    parts = bwd_parts(tuple(x.shape), cout)
+    # W' rounded to x's dtype: stored as bf16 for the tensor-core dx (16-byte
+    # aligned rows), as fp32 for the CUDA-core dx
+    wflip = w.to(x.dtype).flip(0, 1).transpose(2, 3)
+    wflip = (wflip if dx_on_tensor_cores(x.dtype, cout) else wflip.float()).contiguous()
+    if wflip.data_ptr() % 16:
+        wflip = wflip.clone()
+    parts = bwd_parts(tuple(x.shape), k, cout, x.dtype)
     partial = torch.empty((parts, k, k, cin, cout), dtype=torch.float32, device=x.device)
     dw = torch.empty((k, k, cin, cout), dtype=torch.float32, device=x.device)
     dx = _out_like(x, cin)
+    # bf16: channels-last copies of x and g, which the kernels make, where they
+    # are not channels-last already (the model's NCHW views)
+    scratch = [torch.empty((b, h, wd, t.shape[3]), dtype=x.dtype, device=x.device)
+               if x.dtype == torch.bfloat16 and not _channels_last_aligned(t) else None for t in (x, g)]
     rc = binding.kernel("smallc_conv", "cenet_smallc_conv_bwd", _BWD_ARGTYPES)(
-        binding.is_bf16(x), *binding.ptrs(x, g, wflip, dx, partial, dw), b, h, wd, cin, cout, k,
+        binding.is_bf16(x), *binding.ptrs(x, g, wflip, dx, partial, dw),
+        *(None if t is None else t.data_ptr() for t in scratch), b, h, wd, cin, cout, k,
         *binding.strides(x, 4), *binding.strides(g, 4), *binding.strides(dx, 4), parts, binding.stream())
     binding.raise_on(name, rc)
     binding.LAUNCHES[name] += 1

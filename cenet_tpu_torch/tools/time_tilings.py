@@ -1,7 +1,7 @@
 """Time the tensor-core kernels that have candidate block tilings at their
 sites on the main paths.
 
-    python3 -m cenet_tpu_torch.tools.time_tilings [k6] [k8] [k12]
+    python3 -m cenet_tpu_torch.tools.time_tilings [k6] [k8] [k12] [k12bwd] [k11]
 
 K8 (``attention_bwd_fused_tc_kernel``, ``csrc/attention_tc.cuh``) at the dec1
 Nonlocal site: B = 8, H = 1, N = M = 3136, d = dv = 64, blocks of 16·warps
@@ -12,14 +12,23 @@ d = 8, dv = 16 on the split head views of the projections, blocks of
 (``conv_fwd_tc_kernel``, ``csrc/smallc_conv.cu``) at the three OutHead
 shapes of a 32-slice chunk (5×5 32→32 at 224², 3×3 64→32 and 64→64 at 112²,
 NCHW views): warps, pixel rows a warp, weight rows a chunk and chunks in
-flight. Each kernel's variants are
+flight. K12's bf16 dw (``conv_dw_tc_kernel``) at the same shapes at the
+training batch of 8, with the ordered sum of its partials: m blocks a warp
+(the block's slice of dW's rows), pixel rows a tile, and the partial count
+(blocks aimed at 1, 2 or 4 per SM); held to the wrapper's dw within 1e-4 of
+its largest element (another partial count sums in another order). K11's
+forward (``dw3x3_plane_kernel``, ``dw3x3_cl_kernel``, ``csrc/depthwise_conv.cu``)
+in bf16 at dilation 1 at the chunk's largest sites of both layouts: 16-byte
+vectors of outputs a thread and runs a block (plane kernel), outputs along W
+a thread (channels-last kernel); held to the wrapper to the bit. The first
+tiling of k12bwd and of k11 is the one the sources launch. Each kernel's variants are
 compiled into one small source (``nvcc -Xptxas -v`` prints each instance's
 registers and spills); on bf16 inputs each tiling is held to the production
 wrapper (the outputs that one block writes equal to the bit, K6's δ too;
 the gradients summed with atomics within 2^-8 of their max) and the tilings are
 timed in turns (a, b, …, b, a) with CUDA events. Prints one JSON line per
 tiling and the card's name and power limit. Needs one CUDA device and
-``nvcc``; with no argument it times both kernels.
+``nvcc``; with no argument it times every kernel.
 """
 
 from __future__ import annotations
@@ -37,9 +46,18 @@ from cenet_tpu_torch.ops import attention_kernels as K
 from cenet_tpu_torch.ops import binding, build
 
 # each kernel's candidate tilings: (warps, streamed rows) for K6 and K8;
-# (warps, 16-pixel rows a warp, weight rows a chunk, chunks in flight) for K12
+# (warps, 16-pixel rows a warp, weight rows a chunk, chunks in flight) for K12;
+# (m blocks a warp at 32 output channels, at 64, pixel rows a tile, dw blocks
+# aimed at per SM) for K12's dw (8 warps); (16-byte output vectors a thread,
+# runs a block, outputs along W a thread) for K11's forward.
 TILINGS = {"k8": [(4, 32), (8, 32)], "k6": [(4, 64), (8, 64)],
-           "k12": [(4, 4, 64, 2), (4, 4, 128, 2), (4, 4, 64, 3), (4, 4, 128, 3), (8, 2, 64, 3), (8, 4, 64, 3)]}
+           "k12": [(4, 4, 64, 2), (4, 4, 128, 2), (4, 4, 64, 3), (4, 4, 128, 3), (8, 2, 64, 3), (8, 4, 64, 3)],
+           "k12bwd": [(2, 1, 8, 2), (2, 1, 8, 1), (4, 2, 8, 1), (4, 2, 8, 2), (4, 2, 16, 1)],
+           "k11": [(1, 512, 8), (2, 512, 8), (1, 256, 8), (1, 1024, 8), (1, 512, 4)]}
+# K11's sites in bf16 at the 32-slice chunk, dilation 1: (name, NCHW shape, channels-last)
+K11_SITES = [("PVT stage 1", (32, 512, 56, 56), True), ("PVT stage 2", (32, 1024, 28, 28), True),
+             ("PVT stage 3", (32, 1280, 14, 14), True), ("CAggMlp 56²", (32, 256, 56, 56), False),
+             ("CAggMlp 14²", (32, 1280, 14, 14), False), ("7² x 2048", (32, 2048, 7, 7), False)]
 # K12's sites: (name, x NHWC, k, cout), x handed over as a view of NCHW memory
 K12_SITES = [("rb.0.conv2", (32, 224, 224, 32), 5, 32), ("up.1", (32, 112, 112, 64), 3, 32),
              ("out.0.conv", (32, 112, 112, 64), 3, 64)]
@@ -77,6 +95,43 @@ static int run(int k, int cin, const void* x, const void* w, void* out, int b, i
   return run<ConvTiles<{nw}, {mb}, {kc}, {st}>>(k, cin, x, w, out, b, h, wd, cout, sxb, sxh, sxw, sxc, sob, soh, sow,
                                                 soc, stream);
 }}
+"""), "k12bwd": ("smallc_conv.cu", """
+// the OutHead shapes only: dw_tc<K, CIN, NT, tiling>, then the ordered sum
+template <class D32, class D64>
+static int run(int k, int cin, const void* x, const void* g, float* partial, float* dw, int b, int h, int wd, int cout,
+               long long sxb, long long sxh, long long sxw, long long sxc, long long sgb, long long sgh,
+               long long sgw, long long sgc, int parts, void* stream) {
+  const Strides sx{sxb, sxh, sxw, sxc}, sg{sgb, sgh, sgw, sgc};
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (k == 5 && cin == 32 && cout <= 32) err = dw_tc<5, 32, 32, D32>(x, g, partial, b, h, wd, cout, sx, sg, parts, st);
+  else if (k == 3 && cin == 64 && cout <= 32) err = dw_tc<3, 64, 32, D32>(x, g, partial, b, h, wd, cout, sx, sg, parts, st);
+  else if (k == 3 && cin == 64) err = dw_tc<3, 64, 64, D64>(x, g, partial, b, h, wd, cout, sx, sg, parts, st);
+  if (err != cudaSuccess) return err;
+  return sum_parts(partial, dw, (long long)k * k * cin * cout, parts, st);
+}
+""", """extern "C" int k12bwd_{m32}_{m64}_{th}_{bps}(int k, int cin, const void* x, const void* g, float* partial, float* dw,
+    int b, int h, int wd, int cout, long long sxb, long long sxh, long long sxw, long long sxc, long long sgb,
+    long long sgh, long long sgw, long long sgc, int parts, void* stream) {{
+  return run<DwTiles<8, {m32}, {th}>, DwTiles<8, {m64}, {th}>>(k, cin, x, g, partial, dw, b, h, wd, cout, sxb, sxh,
+                                                               sxw, sxc, sgb, sgh, sgw, sgc, parts, stream);
+}}
+"""), "k11": ("depthwise_conv.cu", """
+// dilation 1: launch_fwd_dil<T, 1, V, XT> with a block's runs
+template <int OV, int XT>
+static int run(int is_bf16, const void* x, const float* w, void* out, int b, int h, int wd, int c, long long sxb,
+               long long sxh, long long sxw, long long sxc, long long sob, long long soh, long long sow, long long soc,
+               int runs, void* stream) {
+  const Strides sx{sxb, sxh, sxw, sxc}, so{sob, soh, sow, soc};
+  auto st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_fwd_dil<__nv_bfloat16, 1, OV * 8, XT>(x, w, out, b, h, wd, c, sx, so, runs, st)
+                 : launch_fwd_dil<float, 1, OV * 4, XT>(x, w, out, b, h, wd, c, sx, so, runs, st);
+}
+""", """extern "C" int k11_{ov}_{runs}_{xt}(int is_bf16, const void* x, const float* w, void* out, int b, int h, int wd,
+    int c, long long sxb, long long sxh, long long sxw, long long sxc, long long sob, long long soh, long long sow,
+    long long soc, void* stream) {{
+  return run<{ov}, {xt}>(is_bf16, x, w, out, b, h, wd, c, sxb, sxh, sxw, sxc, sob, soh, sow, soc, {runs}, stream);
+}}
 """), "k6": ("diff_attention_tc.cuh", """
 // q1, k1, q2, k2 share the strides sq (split views of one projection layout)
 template <class C>
@@ -103,14 +158,18 @@ static int run(const void* q1, const void* k1, const void* q2, const void* k2, c
 """)}
 _ARGTYPES = {"k8": [binding.P] * 9 + [binding.I] * 5 + [binding.P],
              "k12": [binding.I] * 2 + [binding.P] * 3 + [binding.I] * 4 + [binding.L] * 8 + [binding.P],
-             "k6": [binding.P] * 16 + [binding.I] * 5 + [binding.L] * 9 + [binding.P]}
-_KERNEL_SYMBOL = {"k8": "attention_bwd_fused_tc_kernel", "k6": "diff_bwd_one_tc_kernel", "k12": "conv_fwd_tc_kernel"}
+             "k6": [binding.P] * 16 + [binding.I] * 5 + [binding.L] * 9 + [binding.P],
+             "k12bwd": [binding.I] * 2 + [binding.P] * 4 + [binding.I] * 4 + [binding.L] * 8 + [binding.I, binding.P],
+             "k11": [binding.I] + [binding.P] * 3 + [binding.I] * 4 + [binding.L] * 8 + [binding.P]}
+_KERNEL_SYMBOL = {"k8": "attention_bwd_fused_tc_kernel", "k6": "diff_bwd_one_tc_kernel", "k12": "conv_fwd_tc_kernel",
+                  "k12bwd": "conv_dw_tc_kernel", "k11": "dw3x3_"}
+_FIELDS = {"k12": ("nw", "mb", "kc", "st"), "k12bwd": ("m32", "m64", "th", "bps"), "k11": ("ov", "runs", "xt")}
 
 
 def compile_variants(kernel: str, out_dir: Path):
     header, body, entry = _SOURCE[kernel]
     src = out_dir / f"{kernel}_tilings.cu"
-    prelude = f'#include "{header}"\n' + ("" if kernel == "k12" else "namespace tc = cenet::tc;\n")
+    prelude = f'#include "{header}"\n' + ("" if header.endswith(".cu") else "namespace tc = cenet::tc;\n")
     src.write_text(prelude + body + "".join(entry.format(**_fields(kernel, t)) for t in TILINGS[kernel]))
     lib = out_dir / f"lib{kernel}_tilings.so"
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", f"-I{build.CSRC}", "-o", str(lib), str(src)]
@@ -124,7 +183,7 @@ def compile_variants(kernel: str, out_dir: Path):
 
 
 def _fields(kernel, tiling):
-    return dict(zip(("nw", "mb", "kc", "st") if kernel == "k12" else ("nw", "bs"), tiling))
+    return dict(zip(_FIELDS.get(kernel, ("nw", "bs")), tiling))
 
 
 def _name(kernel, tiling):
@@ -228,9 +287,7 @@ def k12_bench(lib, dev):
 
             calls[t], outs[t] = call, call().clone()
         torch.cuda.synchronize()
-        times = {t: [] for t in calls}
-        for t in [*calls, *reversed(list(calls))]:
-            times[t].append(time_ms(calls[t]))
+        times = _in_turns(calls)
         for t, got in outs.items():
             row = {"kernel": "k12", "site": site, **_fields("k12", t), "ms": times[t],
                    "equal_to_wrapper": bool(torch.equal(got, want))}
@@ -239,13 +296,103 @@ def k12_bench(lib, dev):
                 raise SystemExit(f"k12 tiling {t} disagrees with the wrapper at {site}: {row}")
 
 
+def _in_turns(calls):
+    """Each call timed twice, in turns (a, b, …, b, a)."""
+    times = {t: [] for t in calls}
+    for t in [*calls, *reversed(list(calls))]:
+        times[t].append(time_ms(calls[t]))
+    return times
+
+
+def k12bwd_bench(lib, dev):
+    """K12's bf16 dw tilings at each OutHead shape at the training batch of 8 on
+    channels-last x and g (the wrapper copies the model's NCHW views so): each
+    held to the wrapper's dw within 1e-4 of its largest element, timed in turns
+    with the ordered sum of the partials. Prints one JSON line per (site,
+    tiling)."""
+    from cenet_tpu_torch.ops import smallc_conv as SC
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for site, (_, h, wd, cin), k, cout in K12_SITES:
+        b = 8
+        x = torch.randn(b, cin, h, wd, generator=gen, device=dev).bfloat16().permute(0, 2, 3, 1)
+        g = torch.randn(b, cout, h, wd, generator=gen, device=dev).bfloat16().permute(0, 2, 3, 1)
+        w = 0.1 * torch.randn(k, k, cin, cout, generator=gen, device=dev)  # fp32: dw comes back in fp32
+        want = SC.conv_small_c_bwd(x, w, g, k // 2)[1]
+        x, g = x.contiguous(), g.contiguous()
+        calls, outs, parts_of = {}, {}, {}
+        for t in TILINGS["k12bwd"]:
+            m32, m64, th, bps = t
+            nt = 32 if cout <= 32 else 64
+            m_blocks = -(-k * k * cin // 16)
+            per_part = -(-m_blocks // (8 * (m32 if nt == 32 else m64))) * -(-cout // nt)
+            tiles = b * -(-h // th) * -(-wd // 16)
+            parts = max(1, min(tiles, -(-bps * 132 // per_part)))
+            fn = getattr(lib, _name("k12bwd", t))
+            fn.argtypes, fn.restype = _ARGTYPES["k12bwd"], binding.I
+            partial = torch.empty((parts, k, k, cin, cout), device=dev)
+            dw = torch.empty((k, k, cin, cout), device=dev)
+
+            def call(fn=fn, partial=partial, dw=dw, parts=parts):
+                binding.raise_on("k12bwd tiling", fn(k, cin, *binding.ptrs(x, g, partial, dw), b, h, wd, cout,
+                                                     *binding.strides(x, 4), *binding.strides(g, 4), parts,
+                                                     binding.stream()))
+                return dw
+
+            calls[t], outs[t], parts_of[t] = call, call().clone(), parts
+        torch.cuda.synchronize()
+        times = _in_turns(calls)
+        for t, got in outs.items():
+            err, lim = float((got - want).abs().max()), 1e-4 * float(want.abs().max())
+            row = {"kernel": "k12bwd", "site": site, "batch": b, **_fields("k12bwd", t), "parts": parts_of[t],
+                   "ms": times[t], "max_abs_vs_wrapper": err, "limit": lim,
+                   "equal_to_wrapper": bool(torch.equal(got, want))}
+            print(json.dumps(row), flush=True)
+            if err > lim:
+                raise SystemExit(f"k12bwd tiling {t} disagrees with the wrapper at {site}: {row}")
+
+
+def k11_bench(lib, dev):
+    """K11's forward tilings in bf16 at the chunk's largest sites (dilation 1),
+    each held to the wrapper's output to the bit and timed in turns. Prints one
+    JSON line per (site, tiling)."""
+    from cenet_tpu_torch.ops import depthwise as DWK
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for site, (b, c, h, wd), channels_last in K11_SITES:
+        x = torch.randn(b, c, h, wd, generator=gen, device=dev).bfloat16().permute(0, 2, 3, 1)
+        x = x.contiguous() if channels_last else x
+        taps = torch.randn(3, 3, c, generator=gen, device=dev)
+        want = DWK.depthwise_fwd(x, taps, 1)
+        calls, outs = {}, {}
+        for t in TILINGS["k11"]:
+            fn = getattr(lib, _name("k11", t))
+            fn.argtypes, fn.restype = _ARGTYPES["k11"], binding.I
+            out = torch.empty_like(x)
+
+            def call(fn=fn, out=out):
+                binding.raise_on("k11 tiling", fn(1, *binding.ptrs(x, taps, out), b, h, wd, c, *binding.strides(x, 4),
+                                                  *binding.strides(out, 4), binding.stream()))
+                return out
+
+            calls[t], outs[t] = call, call().clone()
+        torch.cuda.synchronize()
+        times = _in_turns(calls)
+        for t, got in outs.items():
+            row = {"kernel": "k11", "site": site, "shape_nchw": [b, c, h, wd], "channels_last": channels_last,
+                   **_fields("k11", t), "ms": times[t], "equal_to_wrapper": bool(torch.equal(got, want))}
+            print(json.dumps(row), flush=True)
+            if not row["equal_to_wrapper"]:
+                raise SystemExit(f"k11 tiling {t} disagrees with the wrapper at {site}: {row}")
+
+
 def bench(kernel: str, dev):
     build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
         lib, report = compile_variants(kernel, Path(tmp))
     print("\n".join(report), file=sys.stderr)
-    if kernel == "k12":
-        return k12_bench(lib, dev)
+    if kernel in ("k12", "k12bwd", "k11"):
+        return {"k12": k12_bench, "k12bwd": k12bwd_bench, "k11": k11_bench}[kernel](lib, dev)
     calls, want, exact, summed, names = (k6_calls if kernel == "k6" else k8_calls)(lib, dev)
     outs = {t: [x.clone() for x in call()] for t, call in calls.items()}
     torch.cuda.synchronize()

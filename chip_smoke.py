@@ -35,8 +35,8 @@ runs K10. Phases:
    K7 on the same inputs, under the twin's limits;
    2c. K9, K11 and K12 against their twins at every site shape of the swapped
    paths (batch 2, and the 32-slice chunk or the training batch of 8; fp32 and
-   bf16), repeat-run bit-identity of K11's dw and K12's forward and
-   backward, and their times beside the bound and the library call;
+   bf16), repeat-run bit-identity of K11's forward and dw and of K12's
+   forward, dx and dw, and their times beside the bound and the library call;
 3. slice parity: a seeded CENet-b2 (Synapse preset) on 2 slices at 224², fp32
    on the card (kernels routed) against fp32 on the CPU (twins), then bf16;
    3b. train-step parity: one fp32 forward/backward of the same model in train
@@ -58,7 +58,8 @@ runs K10. Phases:
    split run's launch counts and slices/s, and the interleaved chunk's
    distance from the same chunk with K1's twin at the DSEB sites (measured
    only);
-   4c. the same with K9, K11 and K12 swapped in (fp32 and bf16 chunks);
+   4c. the same with K9, K11 and K12 swapped in (fp32 and bf16 chunks), and
+   the bf16 chunk's forward timed with CUDA events beside the unswapped one;
 5. where one chunk's time goes: the bf16 forward of 32 slices timed with CUDA
    events, and its device time by kernel from ``torch.profiler``, which must
    show K1's and K2's tensor-core kernels as often as the launch counts say
@@ -76,8 +77,10 @@ runs K10. Phases:
    K5 on K1's tensor-core kernel and K6's tensor-core kernel (two per step),
    and no K3 and no CUDA-core instance of K6;
    7c. the same as phase 6's steps with K9, K11 and K12 swapped in, profiled
-   with phase 7's designs and K12's tensor-core forward (four per step), and
-   no bf16 instance of K12's CUDA-core forward;
+   with phase 7's designs, K12's tensor-core forward (four per step, and four
+   more for the backward's dx), its tensor-core dw (four) and K11's tiled
+   forward (70: 35 forwards, 35 dx), and no bf16 instance of K12's CUDA-core
+   forward or backward;
    7d. phase 7b with K7 and K8 swapped in for K6 and K4
    (``split_route(swap_backwards=True)``): step ms, launch counts, and one
    profiled step, which must show K7's tensor-core kernels (K3's dq kernel
@@ -1099,7 +1102,11 @@ def phase_split_volume():
 # csrc/attention_{fwd,bwd}_common.cuh (the forward's first template argument is
 # GROUPS, the backward's the dtype), GROUPS = 1 (K2, K4 and K8 in fp32) and
 # GROUPS = 2 (K1, K3, K5 and K7 in fp32; K6's one-launch instance), and K12's
-# CUDA-core forward (fp32 only, so never in a bf16 profile)
+# CUDA-core forward (fp32 only, so never in a bf16 profile); K12's backward:
+# dx on K12's tensor-core forward, dw on its own tensor-core kernel, and the
+# CUDA-core backward (fp32; in bf16 only for a Cout outside 8, 16, 32, 64,
+# none at the OutHead sites); K11's forward in both dtypes, by layout
+# (dw3x3_cl_kernel channels-last, dw3x3_plane_kernel any other strides)
 KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attention_bwd_dq_tc_kernel<",
                   "bwd_dkv_tc": r"attention_bwd_dkv_tc_kernel<",
                   "bwd_fused_tc": r"attention_bwd_fused_tc_kernel<",
@@ -1113,14 +1120,18 @@ KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attentio
                   "diff_bwd_cuda_core": r"attention_bwd_(dq_kernel<[^,<>]+, 2, \d+, false>|dkv_kernel<[^,<>]+, 2,)",
                   "diff_bwd_one_launch": r"attention_bwd_dq_kernel<[^,<>]+, 2, \d+, true>",
                   "conv_fwd_tc": r"conv_fwd_tc_kernel<",
-                  "conv_fwd_cuda_core": r"conv_fwd_kernel<"}
+                  "conv_fwd_cuda_core": r"conv_fwd_kernel<",
+                  "conv_dw_tc": r"conv_dw_tc_kernel<",
+                  "conv_bwd_cuda_core": r"conv_bwd_kernel<",
+                  "depthwise_fwd_tiled": r"dw3x3_(cl|plane)_kernel<"}
 # the kernels one bf16 call of each such wrapper launches, by design
 BF16_DESIGNS = {"attention_fwd": ("fwd_tc",), "attention_bwd": ("bwd_dq_tc", "bwd_dkv_tc"),
                 "diff_attention_interleaved_fwd": ("diff_fwd_tc",),
                 "diff_attention_interleaved_bwd": ("diff_bwd_dq_tc", "diff_bwd_dkv_tc"),
                 "diff_attention_fwd": ("diff_fwd_tc",), "diff_attention_bwd": ("diff_bwd_one_tc",),
                 "diff_attention_bwd_split": ("diff_bwd_dq_tc", "diff_bwd_dkv_split_tc"),
-                "attention_bwd_fused": ("bwd_fused_tc",), "conv_small_c_fwd": ("conv_fwd_tc",)}
+                "attention_bwd_fused": ("bwd_fused_tc",), "conv_small_c_fwd": ("conv_fwd_tc",),
+                "conv_small_c_bwd": ("conv_fwd_tc", "conv_dw_tc"), "depthwise_fwd": ("depthwise_fwd_tiled",)}
 
 
 def kernel_designs(kernels):
@@ -1516,9 +1527,14 @@ def swap_site_rows(counts):
                     x = nhwc_input(with_batch(shape, b), cl, dtype, gen)
                     where = f"{shape} dilation {dil} {label} {dname}"
                     if label != f"b{TRAIN_B}":
-                        r = close_check(DWK.depthwise_fwd(x, w, dil), DWK.depthwise_fwd_plain(x.float(), w, dil), dtype,
-                                        f"depthwise_fwd {where}")
+                        y = DWK.depthwise_fwd(x, w, dil)
+                        r = close_check(y, DWK.depthwise_fwd_plain(x.float(), w, dil), dtype, f"depthwise_fwd {where}")
                         row.update({f"{label}_{dname}_{k}": v for k, v in r.items()})
+                        # every output element from one thread: two runs give the same bits
+                        same = bool(torch.equal(y, DWK.depthwise_fwd(x, w, dil)))
+                        row[f"{label}_{dname}_repeat_bit_identical"] = same
+                        check(same, f"depthwise_fwd {where}: repeat runs differ")
+                        del y
                     if label != "chunk":
                         g = nhwc_input(with_batch(shape, b), False, dtype, gen)
                         dw = DWK.depthwise_dw(x, g, dil)
@@ -1573,8 +1589,13 @@ def swap_site_rows(counts):
                         for name, got, want, dt in (("dx", dx, want_dx, dtype), ("dw", dw, want_dw, torch.float32)):
                             r = close_check(got, want, dt, f"conv_small_c_bwd {name} {where}")
                             brow.update({f"{label}_{dname}_{name}_{k_}": v for k_, v in r.items()})
-                        brow["repeat_bit_identical"] = bool(torch.equal(dw, SCK.conv_small_c_bwd(x, w, g, pad)[1]))
-                        check(brow["repeat_bit_identical"], f"conv_small_c_bwd {where}: repeat runs differ")
+                        dx2, dw2 = SCK.conv_small_c_bwd(x, w, g, pad)
+                        brow["repeat_bit_identical"] = bool(torch.equal(dw, dw2))
+                        brow["dx_repeat_bit_identical"] = bool(torch.equal(dx, dx2))
+                        check(brow["repeat_bit_identical"] and brow["dx_repeat_bit_identical"],
+                              f"conv_small_c_bwd {where}: repeat runs differ (dw {brow['repeat_bit_identical']}, "
+                              f"dx {brow['dx_repeat_bit_identical']})")
+                        del dx2, dw2
             del x, g, dx, dw, want_dx, want_dw
             x = nhwc_input(with_batch(shape, CHUNK), cl, torch.bfloat16, gen)
             xn, wn = x.permute(0, 3, 1, 2), w.to(torch.bfloat16).permute(3, 2, 0, 1)
@@ -1629,7 +1650,8 @@ def phase_swapped_volume():
     points differ from cuDNN's: the bias is added after the kernel's rounding,
     and sums run in another order; so the swapped bf16 chunk is held to lie no
     further from the fp32 chunk than twice the unswapped bf16 chunk does),
-    argmax agreement ≥ 99.9% in both, launch counts checked exactly; then a synthetic
+    argmax agreement ≥ 99.9% in both, launch counts checked exactly; the bf16
+    chunk's forward timed with CUDA events, unswapped and swapped in turns; then a synthetic
     64-slice case through ``VolumeInferencer`` in bf16 in turns (plain,
     swapped, swapped, plain): labels agreeing on ≥ 99.9% of voxels, slices/s,
     and the launch counts of one swapped run. Returns those counts."""
@@ -1654,6 +1676,11 @@ def phase_swapped_volume():
     bf16_drift = amax(plain["bf16"] - plain["fp32"])
     del plain, swapped
     predict = make_predict_fn(model, torch.bfloat16)
+    # the bf16 chunk's forward (CUDA events), unswapped and swapped in turns
+    chunk_ms = {"plain": [], "swapped": []}
+    for run in ("plain", "swapped", "swapped", "plain"):
+        with swapped_ops() if run == "swapped" else contextlib.nullcontext():
+            chunk_ms[run].append(time_ms(lambda: predict(x)))
     inf = VolumeInferencer(predict, VolumeInferenceConfig(img_size=224, chunk=CHUNK, num_classes=9), device=DEV)
     image = synthetic_case(1)["image"]
     chunks = -(-image.shape[0] // CHUNK)
@@ -1674,7 +1701,7 @@ def phase_swapped_volume():
             case_launches = launched
     label_agree = float((labels["swapped"] == labels["plain"]).mean())
     emit({"phase": "swapped_volume", **{f"{d}_{k}": v for d, r in readings.items() for k, v in r.items()},
-          "bf16_vs_fp32_max_abs_prob_diff_unswapped": bf16_drift,
+          "bf16_vs_fp32_max_abs_prob_diff_unswapped": bf16_drift, "bf16_chunk_forward_ms": chunk_ms,
           "case_label_agree": label_agree, "slices": int(image.shape[0]), "chunks": chunks,
           "slices_per_s": {r: [image.shape[0] / t for t in ts] for r, ts in seconds.items()},
           "launches_swapped_case": case_launches})
@@ -1762,8 +1789,9 @@ def phase_swapped_train(trainer, images, labels, steps=10):
     """Phase 6's bf16 trainer on its resident batch with K9, K11 and K12 swapped
     in: step ms over ``steps`` steps (CUDA events), every loss finite, launch
     counts checked exactly, and one profiled step beside phase 7's, with the
-    same attention designs and K12's tensor-core forward as often as counted
-    (no bf16 instance of its CUDA-core forward)."""
+    same attention designs, K12's tensor-core forward (its forwards and its
+    backwards' dx) and dw, and K11's tiled forward as often as counted (no
+    bf16 instance of K12's CUDA-core forward or backward)."""
     with swapped_ops():
         trainer.train_step(images, labels)  # warm-up
         torch.cuda.synchronize()

@@ -19,8 +19,10 @@ their twins: fp32 within 1e-5 of max |want| for the elementwise kernels (the
 card's rsqrtf and fused multiply-adds), and for the convolutions 1e-4 of max
 and 1e-5 in norm (order of summation); bf16 outputs within two bf16
 half-ulps of max |want| (2·2^-8), fp32 weight gradients as in fp32. K12's
-bf16 forward (the tensor-core implicit GEMM) at every kernel size and input
-width of its domain, with its repeat-run bit-identity.
+bf16 forward and backward (the tensor-core implicit GEMMs, and the CUDA-core
+dx of the shape rule) at every kernel size and input width of its domain, and
+K11's forward at every dilation of its domain in both layouts, with their
+repeat-run bit-identity.
 
 Marked ``cuda``; each test skips without a CUDA device. This file imports no
 JAX, so it runs where only PyTorch is installed:
@@ -754,3 +756,62 @@ def test_cuda_smallc_conv_fwd_bf16_every_k_and_cin(cuda):
             assert got.stride() == SC._out_like(x, cout).stride(), where
             _assert_close(got, want, torch.bfloat16, where)
             assert torch.equal(got, again), where
+
+
+@pytest.mark.cuda
+def test_cuda_smallc_conv_bwd_bf16_every_k_and_cin(cuda):
+    """K12's bf16 backward at every kernel size (3, 5, 7) and input width (8, 16,
+    32, 64) of its domain, on ragged maps of at least 112², as NCHW views and
+    channels-last: dx on the tensor cores where Cout is 8, 16, 32 or 64 and on
+    the CUDA-core dx blocks at Cout 24 and 128 (the shape rule), dw on the
+    tensor cores; dx within two bf16 half-ulps of max |want| of the twin and in
+    x's memory order, dw within the fp32 limits, both bit-identical over two
+    runs."""
+    g = torch.Generator().manual_seed(17)
+    couts = [8, 16, 32, 64, 24, 128]
+    for i, (k, cin) in enumerate([(k, c) for k in (3, 5, 7) for c in (8, 16, 32, 64)]):
+        cout = couts[i % len(couts)]
+        h, w = 112 + i % 3, 113 + 2 * (i % 4)
+        for channels_last in (False, True):
+            x = torch.randn(1, cin, h, w, generator=g).to(cuda, torch.bfloat16).permute(0, 2, 3, 1)
+            gg = torch.randn(1, cout, h, w, generator=g).to(cuda, torch.bfloat16).permute(0, 2, 3, 1)
+            if channels_last:
+                x, gg = x.contiguous(), gg.contiguous()
+            w_hwio = (0.1 * torch.randn(cout, cin, k, k, generator=g)).to(cuda).permute(2, 3, 1, 0)
+            dx, dwk = SC.conv_small_c_bwd(x, w_hwio, gg, k // 2)
+            dx2, dwk2 = SC.conv_small_c_bwd(x, w_hwio, gg, k // 2)
+            dxp, dwp = SC.conv_small_c_bwd_plain(x, w_hwio, gg, k // 2)
+            torch.cuda.synchronize()
+            where = ("bwd", k, cin, cout, h, w, channels_last, SC.dx_on_tensor_cores(x.dtype, cout))
+            assert dx.stride() == SC._out_like(x, cin).stride(), where
+            _assert_close(dx, dxp, torch.bfloat16, ("dx",) + where)
+            _assert_close(dwk, dwp, torch.float32, ("dw",) + where)
+            assert torch.equal(dx, dx2) and torch.equal(dwk, dwk2), where
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_depthwise_fwd_every_dilation_and_layout(cuda, dtype):
+    """K11's forward at dilations 1–5, as NCHW views and channels-last, at widths
+    that are not multiples of the 16-byte vector (8 bf16, 4 fp32), at 7² and
+    14² planes with many channels and at a map wider than one block's rows:
+    within the limits of the twin, the output in x's memory order, and
+    bit-identical over two runs."""
+    g = torch.Generator().manual_seed(18)
+    shapes = [(2, 24, 13, 19), (1, 2048, 7, 7), (2, 1280, 14, 14), (1, 40, 30, 29), (1, 16, 5, 227),
+              (1, 64, 56, 56), (1, 4, 150, 70), (2, 3, 9, 6)]
+    for i, (b, c, h, w) in enumerate(shapes):
+        for dil in range(1, 6):
+            if dil >= max(h, w):
+                continue
+            for channels_last in (False, True):
+                x = torch.randn(b, c, h, w, generator=g).to(cuda, dtype).permute(0, 2, 3, 1)
+                x = x.contiguous() if channels_last else x
+                w_hwio = torch.randn(c, 1, 3, 3, generator=g).to(cuda).permute(2, 3, 1, 0)
+                got, again = DW.depthwise_fwd(x, w_hwio, dil), DW.depthwise_fwd(x, w_hwio, dil)
+                want = DW.depthwise_fwd_plain(x, w_hwio, dil)
+                torch.cuda.synchronize()
+                where = ("dw fwd", b, c, h, w, dil, channels_last)
+                assert got.stride() == x.stride(), where
+                _assert_close(got, want, dtype, where)
+                assert torch.equal(got, again), where
