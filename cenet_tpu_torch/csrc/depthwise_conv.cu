@@ -7,14 +7,15 @@
 // _dp_bwd does, so it needs no kernel of its own.
 //
 // Bound: bytes. Nine multiply-adds per output element against one element
-// read and one written: the only gain is to move each byte once at full
-// width. The TPU kernel keeps a whole padded (H, W, C) map in VMEM. Both
-// kernels take element strides on every dim of x, g and the output, so the
-// model's NCHW tensors arrive as permute(0, 2, 3, 1) views without a copy.
+// read and one written (forward), or one element of x and one of g read per
+// nine sums (dw): the only gain is to move each byte once at full width. The
+// TPU kernel keeps a whole padded (H, W, C) map in VMEM. The kernels take
+// element strides on every dim of x, g and the output, so the model's NCHW
+// tensors arrive as permute(0, 2, 3, 1) views without a copy. Both dtypes,
+// dilations 1-5 (a template argument), all index arithmetic in 32 bits with
+// divisions by multiply-high (the wrapper checks that every offset fits).
 //
-// Forward, one design for both dtypes in two layouts, dilations 1-5 (a
-// template argument), all index arithmetic in 32 bits with divisions by
-// multiply-high (the wrapper checks that every offset fits):
+// Forward, two layouts:
 //   * channels-last (unit channel stride, 16-byte aligned channel vectors,
 //     e.g. the PVT DWConvs): threads along C with 16-byte vectors (8 bf16 or 4
 //     fp32 channels), each sliding a 3-row window along W over 8 outputs with
@@ -25,12 +26,29 @@
 //     computes 16 bytes' worth of adjacent outputs from registers and stores
 //     them with one 16-byte store where aligned (dw3x3_plane_kernel).
 //
-// dw sums over the batch and the map. On the TPU the sequential grid carries
-// that sum in the output block (_dw_kernel's "+="); blocks on the card run in
-// no order, so here it is two passes: each block sums the products of one
-// slice of positions for its channels into a partial (a fixed tree inside
-// the block), and a second kernel adds the partials of each (tap, channel) in
-// order. No atomics: repeat runs are bit-identical.
+// dw, one rule by layout (dw_plan; the wrapper counts which one each call takes):
+//   * x and g both with a unit channel stride: dw3x3_dw_cl_kernel. A thread
+//     owns one vector of 4 channels (8 bytes in bf16, 16 in fp32; element
+//     loads where C, a stride or an address does not allow them) and walks
+//     tasks of 8 positions of a row at stride DIL, sliding a window of 3 rows
+//     x 3 columns of x vectors by one column (3 loads) per position beside one
+//     load of g, with its 9 x 4 fp32 sums in registers;
+//   * any other strides (NCHW views, and x and g in two layouts):
+//     dw3x3_dw_plane_kernel. A block stages a strip of rows of x with its
+//     halo, or several whole small planes, and the matching rows of g in
+//     shared memory with the forward's loads (16-byte where W has unit stride,
+//     else element loads); each thread sums the 9 taps over runs of 16 bytes'
+//     worth of positions from 16-byte shared loads. No site of the train step
+//     hands over two layouts (chip_smoke.py records them).
+// On the TPU the sequential grid carries the sum over the batch in the output
+// block (_dw_kernel's "+="); blocks on the card run in no order. So each block
+// sums the products of one slice of the positions ("part") for its channels
+// in a fixed order (its threads' running sums, then a fixed tree over the
+// threads) and writes that partial; the last block of each channel group to
+// finish (a ticket counter after __threadfence) adds the group's partials in
+// part order into dw and re-arms the counter. dw_plan sizes the parts to the
+// work (the wrapper asks it how many, to size the partials). No atomics on
+// the sums: repeat runs are bit-identical.
 //
 // Numerics as the Pallas bodies: x (or g) in its dtype, the taps in fp32, the
 // sum in fp32 over the taps in (dy, dx) order (taps outside the map add
@@ -42,6 +60,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -84,13 +103,15 @@ template <typename T>
 struct VecOf {
   static constexpr int N = 16 / sizeof(T);
 };
-template <typename T>
-__device__ __forceinline__ float elem(const uint4& v, int e) {
+// element e of T, as fp32, from the raw word v (uint4 or uint2)
+template <typename T, typename W>
+__device__ __forceinline__ float elem(const W& v, int e) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
   if constexpr (sizeof(T) == 2) {
-    const uint32_t word = (&v.x)[e >> 1];
+    const uint32_t word = w[e >> 1];
     return __uint_as_float((e & 1 ? word >> 16 : word & 0xffffu) << 16);
   } else {
-    return __uint_as_float((&v.x)[e]);
+    return __uint_as_float(w[e]);
   }
 }
 template <typename T>
@@ -109,6 +130,36 @@ __device__ __forceinline__ uint4 pack(const float* a) {
   return v;
 }
 __device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// one load or store instruction of N bytes
+template <int N> struct Word;
+template <> struct Word<16> { using type = uint4; };
+template <> struct Word<8> { using type = uint2; };
+
+// VEC elements of a row from column col0 on (zeros outside columns 0 .. wd - 1),
+// the row at row[0] with element stride sw: one 16-byte load where they lie
+// inside the row at unit stride and aligned, 4-byte loads where 4-byte
+// aligned (bf16), else element loads
+template <typename T>
+__device__ __forceinline__ uint4 load_row_vec(const T* row, int col0, int wd, int sw) {
+  constexpr int VEC = VecOf<T>::N;
+  uint4 val = make_uint4(0u, 0u, 0u, 0u);
+  if (col0 + VEC <= 0 || col0 >= wd) return val;
+  const T* src = row + col0 * sw;
+  const bool inside = sw == 1 && col0 >= 0 && col0 + VEC <= wd;
+  if (inside && aligned16(src)) {
+    val = *reinterpret_cast<const uint4*>(src);
+  } else if (sizeof(T) == 2 && inside && (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) (&val.x)[e] = reinterpret_cast<const uint32_t*>(src)[e];
+  } else {
+    T* ev = reinterpret_cast<T*>(&val);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      if (col0 + e >= 0 && col0 + e < wd) ev[e] = src[e * sw];
+  }
+  return val;
+}
 
 constexpr int FWD_THREADS = 256;
 constexpr int MAX_PLANES = 64;  // planes a block of the plane kernel takes at most
@@ -153,23 +204,9 @@ __global__ void __launch_bounds__(FWD_THREADS) dw3x3_plane_kernel(const T* __res
   const int nv = pitch / VEC;
   for (int i = tid; i < np * sr_n * nv; i += FWD_THREADS) {
     const int q = fdiv(i, div_nv), v = i - q * nv, p = fdiv(q, div_sr), sr = q - p * sr_n;
-    const int yy = r0 - DIL + sr, col0 = v * VEC - L;
+    const int yy = r0 - DIL + sr;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (xbase[p] >= 0 && yy >= 0 && yy < h && col0 + VEC > 0 && col0 < wd) {
-      const T* src = x + xbase[p] + yy * sx.h + col0 * sx.w;
-      const bool inside = sx.w == 1 && col0 >= 0 && col0 + VEC <= wd;
-      if (inside && aligned16(src)) {
-        val = *reinterpret_cast<const uint4*>(src);
-      } else if (sizeof(T) == 2 && inside && (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) (&val.x)[e] = reinterpret_cast<const uint32_t*>(src)[e];
-      } else {
-        T* ev = reinterpret_cast<T*>(&val);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          if (col0 + e >= 0 && col0 + e < wd) ev[e] = src[e * sx.w];
-      }
-    }
+    if (xbase[p] >= 0 && yy >= 0 && yy < h) val = load_row_vec(x + xbase[p] + yy * sx.h, v * VEC - L, wd, sx.w);
     *reinterpret_cast<uint4*>(buf + (p * sr_n + sr) * pitch + v * VEC) = val;
   }
   __syncthreads();
@@ -273,66 +310,242 @@ __global__ void __launch_bounds__(FWD_THREADS) dw3x3_cl_kernel(const T* __restri
   }
 }
 
-constexpr int DW_THREADS = 256;
+// ---------------------------------------------------------------------------
+// dw: tiled, vectorised, 32-bit indices, the ordered sum in the same launch
+// ---------------------------------------------------------------------------
 
-// Pass 1: block (channel group, part). CPB channels per block, DW_THREADS / CPB
-// lanes per channel walking the part's positions; a fixed tree over the lanes.
-template <typename T, int CPB>
-__global__ void depthwise_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                                            float* __restrict__ partial, int h, int wd, int c, int dil, Strides sx,
-                                            Strides sg, long long npos, long long per) {
-  constexpr int LANES = DW_THREADS / CPB;
-  __shared__ float red[9][DW_THREADS];
-  const int tid = threadIdx.x;
-  const int cl = tid % CPB, lane = tid / CPB;
-  const int ch = blockIdx.x * CPB + cl;
-  const long long start = (long long)blockIdx.y * per;
-  const long long end = min(npos, start + per);
-  float acc[9];
+constexpr int DW_THREADS = 256;
+constexpr int DW_WARPS = DW_THREADS / 32;
+constexpr int MAX_CVB = 8;  // channel vectors a channels-last block takes at most
+
+// A block's sum s of tap t for channel ch: straight into dw when the
+// positions are one part, else into the part's partial
+__device__ __forceinline__ void put_sum(float s, int t, int ch, int c, int part, int parts, float* partial,
+                                        float* dw) {
+  if (parts == 1) dw[t * c + ch] = s;
+  else partial[((long long)part * 9 + t) * c + ch] = s;
+}
+
+// After every thread of the block has put its sums: with more than one part,
+// the last block of channel group blockIdx.x to arrive adds the group's
+// partials (channels c0 .. c0 + nch - 1) in part order into dw and re-arms the
+// group's ticket for the next launch
+__device__ void finish_group(const float* partial, float* dw, unsigned* ticket, int parts, int c, int c0, int nch) {
+  __shared__ bool last;
+  __threadfence();  // this thread's partials visible to the block that sums them
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == (unsigned)parts - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < 9 * nch; i += DW_THREADS) {
+    const int t = i / nch, ch = c0 + i - t * nch;
+    const float* src = partial + (long long)t * c + ch;
+    float s = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < parts; ++k) s += __ldcg(src + (long long)k * 9 * c);  // L2: written by other SMs
+    dw[t * c + ch] = s;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// Channels-last x and g (unit channel stride). A block takes channel group
+// blockIdx.x (cvb = 2^log_cvb vectors of CPT channels, cvb <= MAX_CVB) and part
+// blockIdx.y, the tasks blockIdx.y * per .. + per - 1; thread (lane, cvl),
+// tid = lane * cvb + cvl, takes every (DW_THREADS / cvb)-th of them for its
+// vector cvl. A task is XT positions of one row at stride DIL, x = r + DIL *
+// (j * XT + k) for k < XT, task = ((b * H + y) * DIL + r) * tiles + j, so a
+// thread's window is 3 rows x 3 columns of x vectors, sliding by one column (3
+// loads) per position, beside one load of g. VEC: CPT * sizeof(T)-byte loads
+// (else element loads, zeros past channel c - 1). The fixed tree: shuffles
+// over the lanes of a warp, then the warps in order through shared memory.
+template <typename T, int DIL, int CPT, int XT, bool VEC>
+__global__ void __launch_bounds__(DW_THREADS, 2)
+    dw3x3_dw_cl_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ partial,
+                       float* __restrict__ dw, unsigned* __restrict__ tickets, int c, int h, int wd, int log_cvb,
+                       int tiles, int ntasks, int per, int parts, FastDiv div_tiles, FastDiv div_h, IStrides sx,
+                       IStrides sg) {
+  using W = typename Word<CPT * sizeof(T)>::type;
+  constexpr int LOG_CPT = CPT == 8 ? 3 : CPT == 4 ? 2 : CPT == 2 ? 1 : 0;
+  static_assert((1 << LOG_CPT) == CPT, "CPT a power of two up to 8");
+  __shared__ float red[DW_WARPS][9][MAX_CVB * CPT];
+  const int tid = threadIdx.x, cvb = 1 << log_cvb, cvl = tid & (cvb - 1), lane = tid >> log_cvb;
+  const int lanes = DW_THREADS >> log_cvb, c0 = blockIdx.x * cvb * CPT, ch0 = c0 + cvl * CPT;
+  const int nvalid = min(CPT, c - ch0);
+  auto ld = [&](const T* p) {
+    W v;
+    if constexpr (VEC) {
+      v = *reinterpret_cast<const W*>(p);
+    } else {
+      T* ev = reinterpret_cast<T*>(&v);
 #pragma unroll
-  for (int t = 0; t < 9; ++t) acc[t] = 0.f;
-  if (ch < c) {
-    for (long long pos = start + lane; pos < end; pos += LANES) {
-      const int col = (int)(pos % wd);
-      const long long r = pos / wd;
-      const int row = (int)(r % h);
-      const long long b = r / h;
-      const float gv = to_f(g[b * sg.b + row * sg.h + col * sg.w + ch * sg.c]);
-      const T* xb = x + b * sx.b + ch * sx.c;
+      for (int e = 0; e < CPT; ++e) ev[e] = e < nvalid ? p[e] : from_f<T>(0.f);
+    }
+    return v;
+  };
+  float acc[9][CPT];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) acc[t][e] = 0.f;
+  const int end = min(ntasks, (blockIdx.y + 1) * per);
+  for (int task = blockIdx.y * per + lane; nvalid > 0 && task < end; task += lanes) {
+    const int q = fdiv(task, div_tiles), j = task - q * tiles, row = q / DIL, r = q - row * DIL;
+    const int b = fdiv(row, div_h), y = row - b * h, x0 = r + DIL * j * XT;
+    const T* xr[3];
+    bool rv[3];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const int yy = y + (dy - 1) * DIL;
+      rv[dy] = yy >= 0 && yy < h;
+      xr[dy] = x + b * sx.b + yy * sx.h + ch0;
+    }
+    const T* gr = g + b * sg.b + y * sg.h + ch0;
+    auto xload = [&](int dy, int col) { return rv[dy] && col >= 0 && col < wd ? ld(xr[dy] + col * sx.w) : W{}; };
+    W win[3][3];  // win[dy][k]: column xc + (k - 1) DIL of row y + (dy - 1) DIL for the position xc
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      win[dy][0] = xload(dy, x0 - DIL);
+      win[dy][1] = xload(dy, x0);
+    }
+#pragma unroll
+    for (int k = 0; k < XT; ++k) {
+      const int xc = x0 + k * DIL;
+      if (xc >= wd) break;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) win[dy][2] = xload(dy, xc + DIL);
+      const W gv = ld(gr + xc * sg.w);
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int e = 0; e < CPT; ++e)
+            acc[dy * 3 + dx][e] = fmaf(elem<T>(win[dy][dx], e), elem<T>(gv, e), acc[dy * 3 + dx][e]);
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
-        const int yy = row + (dy - 1) * dil;
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const int xx = col + (dx - 1) * dil;
-          if (yy >= 0 && yy < h && xx >= 0 && xx < wd) acc[dy * 3 + dx] += to_f(xb[yy * sx.h + xx * sx.w]) * gv;
-        }
+        win[dy][0] = win[dy][1];
+        win[dy][1] = win[dy][2];
       }
     }
   }
+  // lanes of one warp differ in tid by multiples of cvb: xor over cvb .. 16
+  for (int o = cvb; o < 32; o <<= 1)
 #pragma unroll
-  for (int t = 0; t < 9; ++t) red[t][tid] = acc[t];
+    for (int t = 0; t < 9; ++t)
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) acc[t][e] += __shfl_xor_sync(0xffffffffu, acc[t][e], o);
+  if ((tid & 31) < cvb) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) red[tid >> 5][t][cvl * CPT + e] = acc[t][e];
+  }
   __syncthreads();
-  for (int s = LANES / 2; s > 0; s >>= 1) {
-    if (lane < s) {
+  const int nch = min(cvb * CPT, c - c0), log_gc = log_cvb + LOG_CPT;
+  for (int i = tid; i < 9 << log_gc; i += DW_THREADS) {
+    const int t = i >> log_gc, k = i - (t << log_gc);
+    if (k >= nch) continue;
+    float s = 0.f;
 #pragma unroll
-      for (int t = 0; t < 9; ++t) red[t][tid] += red[t][tid + s * CPB];
-    }
-    __syncthreads();
+    for (int w = 0; w < DW_WARPS; ++w) s += red[w][t][k];
+    put_sum(s, t, c0 + k, c, blockIdx.y, parts, partial, dw);
   }
-  if (lane == 0 && ch < c) {
-#pragma unroll
-    for (int t = 0; t < 9; ++t) partial[((long long)blockIdx.y * 9 + t) * c + ch] = red[t][tid];
-  }
+  if (parts > 1) finish_group(partial, dw, tickets + blockIdx.x, parts, c, c0, nch);
 }
 
-// Pass 2: dw[t, ch] = sum over parts, in order.
-__global__ void depthwise_dw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw, int n, int parts) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < parts; ++p) s += partial[(long long)p * n + i];
-  dw[i] = s;
+// Any other strides (NCHW views). A block takes cg = 2^log_cg planes, the
+// channels c0 = blockIdx.x * cg .. c0 + cg - 1 of one batch item, and the rows
+// r0 .. r0 + rows - 1 of each: part blockIdx.y = b * nstrips + strip. It
+// stages those rows of x with their DIL-row halo, each row at a left offset L
+// (a whole number of 16-byte vectors >= DIL) between zero pads, and the rows
+// of g (zeros past the map), in shared memory with the forward's loads. The
+// DW_THREADS / cg threads of a plane take runs of V adjacent positions: per
+// run one 16-byte window of each x row and of g from shared memory and 9 fp32
+// sums; then a fixed tree over the plane's threads (shuffles, then its warps
+// in order through shared memory).
+template <typename T, int DIL, int V>
+__global__ void __launch_bounds__(DW_THREADS)
+    dw3x3_dw_plane_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ partial,
+                          float* __restrict__ dw, unsigned* __restrict__ tickets, int c, int h, int wd, int log_cg,
+                          int rows, int rpr, int pitch, int nstrips, int parts, FastDiv div_nv, FastDiv div_sr,
+                          FastDiv div_gnv, FastDiv div_rows, FastDiv div_rpr, FastDiv div_strips, IStrides sx,
+                          IStrides sg) {
+  constexpr int VEC = VecOf<T>::N, L = VEC * ((DIL + VEC - 1) / VEC), NWV = (2 * L + V) / VEC, GV = V / VEC;
+  static_assert(V % VEC == 0, "whole vectors of positions");
+  extern __shared__ __align__(16) unsigned char plane_smem[];
+  __shared__ float red[DW_WARPS][9];
+  const int tid = threadIdx.x, cg = 1 << log_cg, c0 = blockIdx.x * cg, part = blockIdx.y;
+  const int b = fdiv(part, div_strips), r0 = (part - b * nstrips) * rows, sr_n = rows + 2 * DIL, gpitch = rpr * V;
+  T* xbuf = reinterpret_cast<T*>(plane_smem);  // [cg][rows + 2 DIL][pitch]
+  T* gbuf = xbuf + cg * sr_n * pitch;          // [cg][rows][gpitch]
+  const int nv = pitch / VEC, gnv = gpitch / VEC;
+  for (int i = tid; i < cg * sr_n * nv; i += DW_THREADS) {
+    const int q = fdiv(i, div_nv), v = i - q * nv, p = fdiv(q, div_sr), sr = q - p * sr_n;
+    const int cc = c0 + p, yy = r0 - DIL + sr;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (cc < c && yy >= 0 && yy < h) val = load_row_vec(x + b * sx.b + cc * sx.c + yy * sx.h, v * VEC - L, wd, sx.w);
+    *reinterpret_cast<uint4*>(xbuf + (p * sr_n + sr) * pitch + v * VEC) = val;
+  }
+  for (int i = tid; i < cg * rows * gnv; i += DW_THREADS) {
+    const int q = fdiv(i, div_gnv), v = i - q * gnv, p = fdiv(q, div_rows), r = q - p * rows;
+    const int cc = c0 + p, yy = r0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (cc < c && yy < h) val = load_row_vec(g + b * sg.b + cc * sg.c + yy * sg.h, v * VEC, wd, sg.w);
+    *reinterpret_cast<uint4*>(gbuf + (p * rows + r) * gpitch + v * VEC) = val;
+  }
+  __syncthreads();
+  const int log_tpp = 8 - log_cg, tpp = 1 << log_tpp, p = tid >> log_tpp, lane = tid & (tpp - 1);
+  static_assert(DW_THREADS == 1 << 8, "log_tpp");
+  float acc[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) acc[t] = 0.f;
+  for (int i = lane; i < rows * rpr; i += tpp) {  // positions past the map meet zeros of g
+    const int r = fdiv(i, div_rpr), x0 = (i - r * rpr) * V;
+    const uint4* grow = reinterpret_cast<const uint4*>(gbuf + (p * rows + r) * gpitch + x0);
+    uint4 gv[GV];
+#pragma unroll
+    for (int k = 0; k < GV; ++k) gv[k] = grow[k];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      // the row's window: buffer columns x0 .. x0 + 2L + V - 1 (map columns x0 - L ..)
+      const uint4* row = reinterpret_cast<const uint4*>(xbuf + (p * sr_n + r + dy * DIL) * pitch + x0);
+      uint4 win[NWV];
+#pragma unroll
+      for (int k = 0; k < NWV; ++k) win[k] = row[k];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const int col = L + e + (dx - 1) * DIL;
+          acc[dy * 3 + dx] = fmaf(elem<T>(win[col / VEC], col % VEC), elem<T>(gv[e / VEC], e % VEC), acc[dy * 3 + dx]);
+        }
+    }
+  }
+  // a plane's threads are tid p * tpp .. + tpp - 1: xor inside the warp, then its warps in order
+  for (int o = min(tpp, 32) >> 1; o > 0; o >>= 1)
+#pragma unroll
+    for (int t = 0; t < 9; ++t) acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], o);
+  if (tpp > 32) {
+    if ((tid & 31) == 0) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) red[tid >> 5][t] = acc[t];
+    }
+    __syncthreads();
+    if (lane == 0) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        float s = 0.f;
+        for (int w = 0; w < tpp >> 5; ++w) s += red[(tid >> 5) + w][t];
+        acc[t] = s;
+      }
+    }
+  }
+  if (lane == 0 && c0 + p < c) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) put_sum(acc[t], t, c0 + p, c, part, parts, partial, dw);
+  }
+  if (parts > 1) finish_group(partial, dw, tickets + blockIdx.x, parts, c, c0, min(cg, c - c0));
 }
 
 // The tilings launched: the plane kernel V = one 16-byte vector of outputs a
@@ -344,6 +557,18 @@ template <typename T>
 struct FwdTiles {
   static constexpr int V = VecOf<T>::N, XT = 8;
 };
+// dw's (time_tilings k11dw): CPT = 4 channels a channels-last thread (8 bytes
+// in bf16, 16 in fp32: with 8 bf16 channels, 72 sums, the kernel spilled at
+// the 128 registers of two blocks an SM), XT positions a task, at most
+// BLOCKS_PER_SM blocks an SM for the channels-last kernel (one wave: a few
+// blocks more ran as a second wave at half speed), about RUNS runs of one
+// 16-byte vector of positions a plane block
+template <typename T>
+struct DwTiles {
+  static constexpr int CPT = 4, XT = 8, BLOCKS_PER_SM = 2, RUNS = 512;
+};
+constexpr int SMEM_MAX = 40 * 1024;  // of the 48 KB a launch takes without opting in, beside the static arrays
+constexpr int MAX_CG = 32;           // planes a block of the dw plane kernel takes at most
 
 inline IStrides istrides(Strides s) { return {(int)s.b, (int)s.h, (int)s.w, (int)s.c}; }
 
@@ -355,7 +580,6 @@ cudaError_t launch_plane(const T* x, const float* w, T* out, int b, int h, int w
   int rows = h, np = 1;
   if (rpr * h <= target_runs) np = std::min(MAX_PLANES, std::max(1, target_runs / (rpr * h)));
   else rows = std::max(1, target_runs / rpr);
-  constexpr int SMEM_MAX = 40 * 1024;  // of the 48 KB a launch takes without opting in, beside the static arrays
   while (np > 1 && np * (rows + 2 * DIL) * pitch * (int)sizeof(T) > SMEM_MAX) --np;
   while (rows > 1 && (rows + 2 * DIL) * pitch * (int)sizeof(T) > SMEM_MAX) rows = (rows + 1) / 2;
   const int smem = np * (rows + 2 * DIL) * pitch * (int)sizeof(T);
@@ -412,25 +636,119 @@ cudaError_t launch_fwd(const void* x, const float* w, void* out, int b, int h, i
   }
 }
 
-template <typename T>
-cudaError_t launch_dw(const void* x, const void* g, float* partial, float* dw, int b, int h, int wd, int c, int dil,
-                      Strides sx, Strides sg, int parts, cudaStream_t stream) {
-  const long long npos = (long long)b * h * wd;
-  const long long per = (npos + parts - 1) / parts;
-  if (sx.c == 1) {
-    dim3 grid((c + 31) / 32, parts);
-    depthwise_dw_partial_kernel<T, 32><<<grid, DW_THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), partial, h, wd, c, dil, sx, sg, npos, per);
-  } else {
-    dim3 grid(c, parts);
-    depthwise_dw_partial_kernel<T, 1><<<grid, DW_THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), partial, h, wd, c, dil, sx, sg, npos, per);
+template <typename F>
+cudaError_t with_dil(int dil, F&& f) {
+  switch (dil) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    default: return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = 9 * c;
-  depthwise_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(partial, dw, n, parts);
+}
+
+// The layout rule's routes (the wrapper names them in this order)
+enum DwRoute { DW_CHANNELS_LAST = 0, DW_PLANES = 1 };
+
+// How the dw kernels cut their work: groups blocks along C times parts slices
+// of the positions, each block giving one partial of every (tap, channel) of
+// its group. Channels-last: a block takes 2^log_block vectors of CPT channels
+// and the tasks part * per .. + per - 1. Planes: a block takes 2^log_block
+// channels of one batch item and per rows of them, part = b * strips + strip.
+struct DwPlan {
+  int route, groups, parts, log_block, per;
+};
+
+inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+inline int log2_floor(int n) { return 31 - __builtin_clz((unsigned)n); }
+inline int pow2_at_least(int n) { return n <= 1 ? 1 : 1 << (32 - __builtin_clz((unsigned)(n - 1))); }
+
+// The rule: channels-last when x and g both have a unit channel stride (or C =
+// 1), at most BLOCKS_PER_SM blocks an SM and no more parts than the positions
+// give work to every lane; else planes, blocks of about RUNS runs, as many
+// planes a block as fit. So the small sites take one small wave. A route of -1:
+// no cut fits (a plane row with its halo wider than a block's shared memory,
+// or 2^31 tasks).
+template <typename T, class Tiles = DwTiles<T>>
+DwPlan dw_plan(int b, int h, int wd, int c, int dil, long long sxc, long long sgc) {
+  if ((sxc == 1 && sgc == 1) || c == 1) {
+    int sms = 0, dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int cvecs = ceil_div(c, Tiles::CPT), cvb = std::min(MAX_CVB, pow2_at_least(cvecs));
+    const int groups = ceil_div(cvecs, cvb);
+    const long long ntasks = (long long)b * h * dil * ceil_div(ceil_div(wd, dil), Tiles::XT);
+    if (ntasks >= (1ll << 31)) return {-1, 0, 0, 0, 0};
+    const int parts = std::max(1, std::min(Tiles::BLOCKS_PER_SM * sms / groups, ceil_div(ntasks, DW_THREADS / cvb)));
+    const int per = ceil_div(ntasks, parts);
+    return {DW_CHANNELS_LAST, groups, ceil_div(ntasks, per), log2_floor(cvb), per};
+  }
+  constexpr int VEC = VecOf<T>::N;
+  const int lead = VEC * ceil_div(dil, VEC), rpr = ceil_div(wd, VEC), pitch = 2 * lead + rpr * VEC;
+  auto smem = [&](int cg, int rows) { return (long long)cg * ((rows + 2 * dil) * pitch + rows * rpr * VEC) * sizeof(T); };
+  int cg = 1, rows = h;
+  if ((long long)h * rpr >= Tiles::RUNS) rows = std::min(h, std::max(1, Tiles::RUNS / rpr));
+  else cg = std::min({MAX_CG, pow2_at_least(c), 1 << log2_floor(Tiles::RUNS / (h * rpr))});
+  while (cg > 1 && smem(cg, rows) > SMEM_MAX) cg /= 2;
+  while (rows > 1 && smem(cg, rows) > SMEM_MAX) rows = (rows + 1) / 2;
+  if (smem(cg, rows) > SMEM_MAX) return {-1, 0, 0, 0, 0};
+  return {DW_PLANES, ceil_div(c, cg), b * ceil_div(h, rows), log2_floor(cg), rows};
+}
+
+template <typename T, int DIL, int CPT, int XT>
+cudaError_t launch_dw_cl(const T* x, const T* g, float* partial, float* dw, unsigned* tickets, int b, int h, int wd,
+                         int c, IStrides sx, IStrides sg, DwPlan p, cudaStream_t stream) {
+  const int tiles = ((wd + DIL - 1) / DIL + XT - 1) / XT, ntasks = b * h * DIL * tiles;
+  auto vec_ok = [](const void* q, IStrides s) {
+    return reinterpret_cast<uintptr_t>(q) % (CPT * sizeof(T)) == 0 && s.b % CPT == 0 && s.h % CPT == 0 &&
+           s.w % CPT == 0;
+  };
+  dim3 grid(p.groups, p.parts);
+  auto kernel = c % CPT == 0 && vec_ok(x, sx) && vec_ok(g, sg) ? dw3x3_dw_cl_kernel<T, DIL, CPT, XT, true>
+                                                              : dw3x3_dw_cl_kernel<T, DIL, CPT, XT, false>;
+  kernel<<<grid, DW_THREADS, 0, stream>>>(x, g, partial, dw, tickets, c, h, wd, p.log_block, tiles, ntasks, p.per,
+                                          p.parts, fast_div(tiles), fast_div(h), sx, sg);
   return cudaGetLastError();
+}
+
+template <typename T, int DIL>
+cudaError_t launch_dw_plane(const T* x, const T* g, float* partial, float* dw, unsigned* tickets, int b, int h,
+                            int wd, int c, IStrides sx, IStrides sg, DwPlan p, cudaStream_t stream) {
+  constexpr int V = VecOf<T>::N, L = V * ((DIL + V - 1) / V);
+  const int rows = p.per, rpr = (wd + V - 1) / V, pitch = 2 * L + rpr * V, cg = 1 << p.log_block;
+  const int smem = cg * ((rows + 2 * DIL) * pitch + rows * rpr * V) * (int)sizeof(T);
+  dim3 grid(p.groups, p.parts);
+  dw3x3_dw_plane_kernel<T, DIL, V><<<grid, DW_THREADS, smem, stream>>>(
+      x, g, partial, dw, tickets, c, h, wd, p.log_block, rows, rpr, pitch, p.parts / b, p.parts,
+      fast_div(pitch / V), fast_div(rows + 2 * DIL), fast_div(rpr), fast_div(rows), fast_div(rpr),
+      fast_div(p.parts / b), sx, sg);
+  return cudaGetLastError();
+}
+
+// dw on dw_plan's cut; partial holds the plan's parts (unused with one part),
+// tickets its groups
+template <typename T, class Tiles = DwTiles<T>>
+cudaError_t launch_dw(const void* x, const void* g, float* partial, float* dw, unsigned* tickets, int b, int h, int wd,
+                      int c, int dil, Strides sx, Strides sg, cudaStream_t stream) {
+  if (c == 0) return cudaSuccess;
+  if ((long long)b * h * wd == 0) return cudaMemsetAsync(dw, 0, 9 * sizeof(float) * c, stream);
+  const DwPlan p = dw_plan<T, Tiles>(b, h, wd, c, dil, sx.c, sg.c);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  const IStrides ix = istrides(sx), ig = istrides(sg);
+  if (p.route == DW_CHANNELS_LAST) {
+    return with_dil(dil, [&](auto d) {
+      return launch_dw_cl<T, decltype(d)::value, Tiles::CPT, Tiles::XT>(xt, gt, partial, dw, tickets, b, h, wd, c, ix,
+                                                                        ig, p, stream);
+    });
+  }
+  if (p.route == DW_PLANES) {
+    return with_dil(dil, [&](auto d) {
+      return launch_dw_plane<T, decltype(d)::value>(xt, gt, partial, dw, tickets, b, h, wd, c, ix, ig, p, stream);
+    });
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -446,15 +764,31 @@ extern "C" int cenet_depthwise_fwd(int is_bf16, const void* x, const void* w, vo
                  : (int)launch_fwd<float>(x, wf, out, b, h, wd, c, dil, sx, so, st);
 }
 
-// x, g (B, H, W, C) by element strides; partial (parts, 9, C) fp32 scratch;
-// dw (3, 3, C) fp32 contiguous.
-extern "C" int cenet_depthwise_dw(int is_bf16, const void* x, const void* g, void* partial, void* dw, int b, int h,
-                                  int wd, int c, int dil, long long sxb, long long sxh, long long sxw, long long sxc,
-                                  long long sgb, long long sgh, long long sgw, long long sgc, int parts, void* stream) {
+// dw_plan's route, groups and parts for x, g (B, H, W, C) with channel strides
+// sxc, sgc, written to out[0..2]: the wrapper sizes partial and tickets by them.
+// Returns cudaErrorInvalidValue where no cut fits.
+extern "C" int cenet_depthwise_dw_plan(int is_bf16, int b, int h, int wd, int c, int dil, long long sxc,
+                                       long long sgc, int* out) {
+  const DwPlan p = is_bf16 ? dw_plan<__nv_bfloat16>(b, h, wd, c, dil, sxc, sgc)
+                           : dw_plan<float>(b, h, wd, c, dil, sxc, sgc);
+  out[0] = p.route;
+  out[1] = p.groups;
+  out[2] = p.parts;
+  return p.route < 0 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
+}
+
+// x, g (B, H, W, C) by element strides; partial (parts, 9, C) fp32 (unused
+// with one part) and tickets (groups zeroed counters, left zeroed) as
+// cenet_depthwise_dw_plan gives parts and groups; dw (3, 3, C) fp32 contiguous.
+extern "C" int cenet_depthwise_dw(int is_bf16, const void* x, const void* g, void* partial, void* dw, void* tickets,
+                                  int b, int h, int wd, int c, int dil, long long sxb, long long sxh, long long sxw,
+                                  long long sxc, long long sgb, long long sgh, long long sgw, long long sgc,
+                                  void* stream) {
   Strides sx{sxb, sxh, sxw, sxc}, sg{sgb, sgh, sgw, sgc};
   auto st = static_cast<cudaStream_t>(stream);
   auto pf = static_cast<float*>(partial);
   auto df = static_cast<float*>(dw);
-  return is_bf16 ? (int)launch_dw<__nv_bfloat16>(x, g, pf, df, b, h, wd, c, dil, sx, sg, parts, st)
-                 : (int)launch_dw<float>(x, g, pf, df, b, h, wd, c, dil, sx, sg, parts, st);
+  auto tk = static_cast<unsigned*>(tickets);
+  return is_bf16 ? (int)launch_dw<__nv_bfloat16>(x, g, pf, df, tk, b, h, wd, c, dil, sx, sg, st)
+                 : (int)launch_dw<float>(x, g, pf, df, tk, b, h, wd, c, dil, sx, sg, st);
 }

@@ -4,15 +4,16 @@ counts and the checks on the tensors it hands over.
 Each ``csrc/<source>.cu`` exposes plain C entry points that return a
 ``cudaError_t`` (0 on success). :func:`kernel` builds the source at first use
 (:mod:`cenet_tpu_torch.ops.build`) and gives the entry point with its ctypes
-signature. ``LAUNCHES`` counts kernel launches by wrapper name, one per
-wrapper call that reaches the card (however many CUDA kernels the call
-starts); a wrapper adds to it where it launches and nowhere else.
+signature, set once and kept for later calls. ``LAUNCHES`` counts kernel
+launches by wrapper name, one per wrapper call that reaches the card (however
+many CUDA kernels the call starts); a wrapper adds to it where it launches and
+nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -41,10 +42,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+_ENTRY_POINTS: Dict[Tuple[str, str], Callable[..., int]] = {}
+
+
 def kernel(source: str, symbol: str, argtypes: Sequence):
-    """The C entry point ``symbol`` of ``csrc/<source>.cu``, built first if needed."""
-    fn = getattr(build.load(source), symbol)
-    fn.argtypes, fn.restype = list(argtypes), I
+    """The C entry point ``symbol`` of ``csrc/<source>.cu``, built first if needed;
+    its signature is set at the first call and the entry point kept."""
+    fn = _ENTRY_POINTS.get((source, symbol))
+    if fn is None:
+        fn = getattr(build.load(source), symbol)
+        fn.argtypes, fn.restype = list(argtypes), I
+        _ENTRY_POINTS[(source, symbol)] = fn
     return fn
 
 
@@ -59,6 +67,11 @@ def ptrs(*tensors: torch.Tensor):
 def strides(t: torch.Tensor, dims: int = 3):
     """The element strides of ``t``'s first ``dims`` dims."""
     return tuple(t.stride(i) for i in range(dims))
+
+
+def last_offset(t: torch.Tensor) -> int:
+    """The largest element offset of ``t`` from its first element."""
+    return sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
 
 
 def raise_on(name: str, rc: int) -> None:

@@ -3,7 +3,10 @@
 Mirrors ``tools/negative_results/depthwise.py``: :func:`depthwise_conv3x3` is
 ``depthwise_conv3x3`` there, stride 1, padding = dilation, NHWC x and HWIO
 weights ``(3, 3, 1, C)``. Its kernels replace ``_pallas_depthwise_fwd`` and
-``_pallas_depthwise_dw`` (source ``csrc/depthwise_conv.cu``).
+``_pallas_depthwise_dw`` (source ``csrc/depthwise_conv.cu``, which also plans
+the dw kernel's cut: which kernel by layout, how many parts to sum in order;
+:func:`dw_plan` asks it); ``DW_ROUTES`` counts the routes the dw wrapper's
+launches took.
 :class:`DepthwiseConvFn` is ``_depthwise_pallas``'s custom_vjp: dx is the
 forward kernel on the upstream gradient with the spatially flipped kernel,
 dw the dw kernel (fp32, cast to w's dtype).
@@ -28,16 +31,20 @@ No configuration of either package routes this kernel;
 
 from __future__ import annotations
 
+import collections
+import ctypes
+
 import torch
 import torch.nn.functional as tF
 
 from cenet_tpu_torch.ops import binding
 
 _FWD_ARGTYPES = [binding.I] + [binding.P] * 3 + [binding.I] * 5 + [binding.L] * 8 + [binding.P]
-_DW_ARGTYPES = [binding.I] + [binding.P] * 4 + [binding.I] * 5 + [binding.L] * 8 + [binding.I, binding.P]
-_DW_THREADS = 256  # csrc/depthwise_conv.cu: DW_THREADS
+_DW_ARGTYPES = [binding.I] + [binding.P] * 5 + [binding.I] * 5 + [binding.L] * 8 + [binding.P]
+_PLAN_ARGTYPES = [binding.I] * 6 + [binding.L] * 2 + [binding.P]
 DILATIONS = range(1, 6)  # csrc/depthwise_conv.cu: the forward's instances
-_TARGET_BLOCKS = 4 * 132  # about four blocks per SM of an H100 for the dw pass
+DW_ROUTE_NAMES = ("channels_last", "planes")  # csrc/depthwise_conv.cu: DwRoute, in order
+DW_ROUTES = collections.Counter()  # dw launches by route
 
 
 def _taps(w: torch.Tensor) -> torch.Tensor:
@@ -71,11 +78,6 @@ def depthwise_dw_plain(x: torch.Tensor, g: torch.Tensor, dilation: int = 1) -> t
     return dw.reshape(3, 3, x.shape[-1])
 
 
-def _last_offset(t: torch.Tensor) -> int:
-    """The largest element offset of ``t`` from its first element."""
-    return sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
-
-
 def _check(name: str, x: torch.Tensor, other: torch.Tensor, oname: str) -> None:
     binding.check_cuda_dtype(name, {"x": x, oname: other}, x.dtype)
     if x.ndim != 4 or tuple(other.shape) != tuple(x.shape):
@@ -95,7 +97,7 @@ def depthwise_fwd(x: torch.Tensor, w: torch.Tensor, dilation: int = 1) -> torch.
                          f"dilation {dilation}")
     taps = _taps(w).float().contiguous()
     out = torch.empty_like(x)
-    if max(_last_offset(x), _last_offset(out)) >= 2**31:
+    if max(binding.last_offset(x), binding.last_offset(out)) >= 2**31:
         raise ValueError(f"{name}: x {tuple(x.shape)} strides {x.stride()} pass 32-bit element offsets")
     b, h, wd, _ = x.shape
     rc = binding.kernel("depthwise_conv", "cenet_depthwise_fwd", _FWD_ARGTYPES)(
@@ -106,32 +108,57 @@ def depthwise_fwd(x: torch.Tensor, w: torch.Tensor, dilation: int = 1) -> torch.
     return out
 
 
-def dw_parts(x: torch.Tensor) -> int:
-    """How many slices of the positions the dw kernel's first pass cuts (one
-    partial each): enough blocks to fill the card, at least one position per lane."""
+def dw_plan(x: torch.Tensor, g: torch.Tensor, dilation: int):
+    """The dw kernel's route ("channels_last" when x and g both have a unit
+    channel stride, else "planes"), its blocks along C (``groups``) and its
+    ``parts`` (slices of the positions, each giving one partial of every (tap,
+    channel), added in part order), as ``csrc/depthwise_conv.cu::dw_plan``
+    cuts NHWC x and g: ``(route, groups, parts)``."""
     b, h, wd, c = x.shape
-    cpb = 32 if x.stride(3) == 1 else 1  # csrc/depthwise_conv.cu: channels per block
-    lanes = _DW_THREADS // cpb
-    groups = -(-c // cpb)
-    return max(1, min(-(-_TARGET_BLOCKS // groups), -(-(b * h * wd) // lanes)))
+    out = (ctypes.c_int * 3)()
+    rc = binding.kernel("depthwise_conv", "cenet_depthwise_dw_plan", _PLAN_ARGTYPES)(
+        binding.is_bf16(x), b, h, wd, c, dilation, x.stride(3), g.stride(3), out)
+    if rc != 0:
+        raise ValueError(f"depthwise_dw: no cut of x {tuple(x.shape)} at dilation {dilation} fits the kernels: "
+                         f"a row of width {wd} with its halo is wider than a block's shared memory")
+    return DW_ROUTE_NAMES[out[0]], out[1], out[2]
+
+
+_TICKETS = {}  # (device, stream): the ordered sum's counters, left zeroed by every launch
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
 
 
 def depthwise_dw(x: torch.Tensor, g: torch.Tensor, dilation: int = 1) -> torch.Tensor:
-    """The dw kernel: Σ over batch and map of shift(x)·g, ``(3, 3, C)`` fp32, in
-    two passes without atomics (repeat runs are bit-identical)."""
+    """The dw kernel: Σ over batch and map of shift(x)·g, ``(3, 3, C)`` fp32, by
+    the route and cut of :func:`dw_plan`, its partials added in order in the
+    same launch (no atomics on the sums: repeat runs are bit-identical)."""
     if x.device.type == "cpu":
         return depthwise_dw_plain(x, g, dilation)
     name = "depthwise_dw"
     _check(name, x, g, "g")
+    if dilation not in DILATIONS:
+        raise ValueError(f"{name}: dilation {dilation}")
+    if max(binding.last_offset(x), binding.last_offset(g), x.numel()) >= 2**31:
+        raise ValueError(f"{name}: x {tuple(x.shape)} strides {x.stride()}, g {g.stride()} pass 32-bit offsets")
     b, h, wd, c = x.shape
-    parts = dw_parts(x)
-    partial = torch.empty((parts, 9, c), dtype=torch.float32, device=x.device)
+    route, groups, parts = dw_plan(x, g, dilation)
     dw = torch.empty((3, 3, c), dtype=torch.float32, device=x.device)
+    partial = torch.empty((parts, 9, c), dtype=torch.float32, device=x.device) if parts > 1 else dw
+    stream = binding.stream()
+    tickets = _tickets(x.device, stream, groups)
     rc = binding.kernel("depthwise_conv", "cenet_depthwise_dw", _DW_ARGTYPES)(
-        binding.is_bf16(x), *binding.ptrs(x, g, partial, dw), b, h, wd, c, dilation, *binding.strides(x, 4),
-        *binding.strides(g, 4), parts, binding.stream())
+        binding.is_bf16(x), *binding.ptrs(x, g, partial, dw, tickets), b, h, wd, c, dilation,
+        *x.stride(), *g.stride(), stream)
     binding.raise_on(name, rc)
     binding.LAUNCHES[name] += 1
+    DW_ROUTES[route] += 1
     return dw
 
 

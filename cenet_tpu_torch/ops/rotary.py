@@ -20,7 +20,7 @@ import torch
 
 from cenet_tpu_torch.ops import binding
 
-_ARGTYPES = [binding.I] + [binding.P] * 4 + [binding.I] * 4 + [binding.L] * 3 + [binding.P]
+_ARGTYPES = [binding.I] * 2 + [binding.P] * 4 + [binding.I] * 7 + [binding.P]
 
 
 def make_rotary_tables(seq_len: int, rotary_dim: int, base: float = 10000.0, device=None):
@@ -66,7 +66,8 @@ def apply_rotary_emb_kernel_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch
 def apply_rotary_emb_kernel(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """The counterpart of ``apply_rotary_emb_pallas``: half-split rotary of x
     ``(B, H, N, D)`` (any batch, head and row strides, unit stride on D) with
-    cos/sin ``(N, D/2)``. Returns a contiguous ``(B, H, N, D)`` in x's dtype."""
+    cos/sin ``(N, D/2)``, fp32 (rounded to x's dtype in the kernel) or already in
+    x's dtype. Returns a contiguous ``(B, H, N, D)`` in x's dtype."""
     if x.device.type == "cpu":
         return apply_rotary_emb_kernel_plain(x, cos, sin)
     name = "rotary"
@@ -75,10 +76,18 @@ def apply_rotary_emb_kernel(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tenso
     if d % 2 or tuple(cos.shape) != (n, d // 2) or tuple(sin.shape) != (n, d // 2):
         raise ValueError(f"{name}: x {tuple(x.shape)} with tables {tuple(cos.shape)}, {tuple(sin.shape)}")
     x = x if x.stride(-1) == 1 else x.contiguous()
-    c, s = cos.to(x.device, x.dtype).contiguous(), sin.to(x.device, x.dtype).contiguous()
+    # fp32 tables go to the kernel as they are; others are cast to x's dtype
+    # first, as the twin casts them (a no-op for tables already in x's dtype)
+    c, s = (t.to(x.device, t.dtype if t.dtype == torch.float32 else x.dtype).contiguous() for t in (cos, sin))
+    if c.dtype != s.dtype:
+        c, s = c.to(x.dtype), s.to(x.dtype)
     out = torch.empty((b, h, n, d), dtype=x.dtype, device=x.device)
+    if max(binding.last_offset(x), out.numel()) >= 2**31:
+        raise ValueError(f"{name}: x {tuple(x.shape)} strides {x.stride()} pass 32-bit element offsets")
     rc = binding.kernel("rotary", "cenet_rotary", _ARGTYPES)(
-        binding.is_bf16(x), *binding.ptrs(x, c, s, out), b, h, n, d, *binding.strides(x), binding.stream())
+        binding.is_bf16(x), int(c.dtype == torch.bfloat16), *binding.ptrs(x, c, s, out), b, h, n, d,
+        *binding.strides(x), binding.stream())
     binding.raise_on(name, rc)
     binding.LAUNCHES[name] += 1
     return out
+

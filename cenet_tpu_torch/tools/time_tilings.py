@@ -1,7 +1,7 @@
 """Time the tensor-core kernels that have candidate block tilings at their
 sites on the main paths.
 
-    python3 -m cenet_tpu_torch.tools.time_tilings [k6] [k8] [k12] [k12bwd] [k11]
+    python3 -m cenet_tpu_torch.tools.time_tilings [k6] [k8] [k12] [k12bwd] [k11] [k11dw]
 
 K8 (``attention_bwd_fused_tc_kernel``, ``csrc/attention_tc.cuh``) at the dec1
 Nonlocal site: B = 8, H = 1, N = M = 3136, d = dv = 64, blocks of 16·warps
@@ -20,8 +20,16 @@ its largest element (another partial count sums in another order). K11's
 forward (``dw3x3_plane_kernel``, ``dw3x3_cl_kernel``, ``csrc/depthwise_conv.cu``)
 in bf16 at dilation 1 at the chunk's largest sites of both layouts: 16-byte
 vectors of outputs a thread and runs a block (plane kernel), outputs along W
-a thread (channels-last kernel); held to the wrapper to the bit. The first
-tiling of k12bwd and of k11 is the one the sources launch. Each kernel's variants are
+a thread (channels-last kernel); held to the wrapper to the bit. K11's dw
+(``dw3x3_dw_cl_kernel``, ``dw3x3_dw_plane_kernel``) in bf16 at the training
+batch of 8 at sites of both routes, large and small: channels a channels-last
+thread, positions a task, and the blocks an SM (parts) and plane-block runs
+that ``dw_plan`` aims at; held to the wrapper within 1e-4 of its largest
+element (another cut sums in another order), and timed beside CUDA events by
+device time (``tools/device_time.py``: a CUDA graph of calls on copies of the
+inputs that pass twice the L2), which leaves out the host's dispatch that the
+events read at the small sites. The first
+tiling of k12bwd, k11 and k11dw is the one the sources launch. Each kernel's variants are
 compiled into one small source (``nvcc -Xptxas -v`` prints each instance's
 registers and spills); on bf16 inputs each tiling is held to the production
 wrapper (the outputs that one block writes equal to the bit, K6's δ too;
@@ -44,20 +52,34 @@ import torch
 
 from cenet_tpu_torch.ops import attention_kernels as K
 from cenet_tpu_torch.ops import binding, build
+from cenet_tpu_torch.tools.device_time import graph_ms, rotated
 
 # each kernel's candidate tilings: (warps, streamed rows) for K6 and K8;
 # (warps, 16-pixel rows a warp, weight rows a chunk, chunks in flight) for K12;
 # (m blocks a warp at 32 output channels, at 64, pixel rows a tile, dw blocks
 # aimed at per SM) for K12's dw (8 warps); (16-byte output vectors a thread,
-# runs a block, outputs along W a thread) for K11's forward.
+# runs a block, outputs along W a thread) for K11's forward; (channels a
+# channels-last thread, positions a task, channels-last blocks an SM at most,
+# plane-block runs aimed at) for K11's dw (csrc/depthwise_conv.cu: DwTiles).
 TILINGS = {"k8": [(4, 32), (8, 32)], "k6": [(4, 64), (8, 64)],
            "k12": [(4, 4, 64, 2), (4, 4, 128, 2), (4, 4, 64, 3), (4, 4, 128, 3), (8, 2, 64, 3), (8, 4, 64, 3)],
            "k12bwd": [(2, 1, 8, 2), (2, 1, 8, 1), (4, 2, 8, 1), (4, 2, 8, 2), (4, 2, 16, 1)],
-           "k11": [(1, 512, 8), (2, 512, 8), (1, 256, 8), (1, 1024, 8), (1, 512, 4)]}
+           "k11": [(1, 512, 8), (2, 512, 8), (1, 256, 8), (1, 1024, 8), (1, 512, 4)],
+           "k11dw": [(4, 8, 2, 512), (8, 8, 2, 512), (4, 8, 4, 512), (4, 8, 6, 512), (4, 16, 2, 512),
+                     (4, 8, 2, 1024)]}
 # K11's sites in bf16 at the 32-slice chunk, dilation 1: (name, NCHW shape, channels-last)
 K11_SITES = [("PVT stage 1", (32, 512, 56, 56), True), ("PVT stage 2", (32, 1024, 28, 28), True),
              ("PVT stage 3", (32, 1280, 14, 14), True), ("CAggMlp 56²", (32, 256, 56, 56), False),
              ("CAggMlp 14²", (32, 1280, 14, 14), False), ("7² x 2048", (32, 2048, 7, 7), False)]
+# K11 dw's sites in bf16 at the training batch of 8, in the layouts the train
+# step hands over (chip_smoke.py records them): (name, NHWC shape, dilation,
+# x layout, g layout), "cl" channels-last memory, "nchw" the view of NCHW
+# memory, "slice" 20 channels of a 64-channel NCHW tensor
+K11DW_SITES = [("PVT stage 1", (8, 56, 56, 512), 1, "cl", "cl"), ("PVT stage 2", (8, 28, 28, 1024), 1, "cl", "cl"),
+               ("PVT stage 4", (8, 7, 7, 2048), 1, "cl", "cl"),
+               ("NCHW 56² x 256", (8, 56, 56, 256), 1, "nchw", "nchw"),
+               ("NCHW 7² x 2048", (8, 7, 7, 2048), 1, "nchw", "nchw"),
+               ("dilated 56² x 20", (8, 56, 56, 20), 2, "slice", "nchw")]
 # K12's sites: (name, x NHWC, k, cout), x handed over as a view of NCHW memory
 K12_SITES = [("rb.0.conv2", (32, 224, 224, 32), 5, 32), ("up.1", (32, 112, 112, 64), 3, 32),
              ("out.0.conv", (32, 112, 112, 64), 3, 64)]
@@ -132,6 +154,27 @@ static int run(int is_bf16, const void* x, const float* w, void* out, int b, int
     long long soc, void* stream) {{
   return run<{ov}, {xt}>(is_bf16, x, w, out, b, h, wd, c, sxb, sxh, sxw, sxc, sob, soh, sow, soc, {runs}, stream);
 }}
+"""), "k11dw": ("depthwise_conv.cu", """
+// bf16: dw_plan and launch_dw on a tiling of DwTiles' fields
+template <int CPT_, int XT_, int BPS_, int RUNS_>
+struct Tiles {
+  static constexpr int CPT = CPT_, XT = XT_, BLOCKS_PER_SM = BPS_, RUNS = RUNS_;
+};
+using bf16 = __nv_bfloat16;
+""", """extern "C" int k11dw_plan_{cpt}_{xt}_{bps}_{runs}(int b, int h, int wd, int c, int dil, long long sxc,
+    long long sgc, int* out) {{
+  const DwPlan p = dw_plan<bf16, Tiles<{cpt}, {xt}, {bps}, {runs}>>(b, h, wd, c, dil, sxc, sgc);
+  out[0] = p.route, out[1] = p.groups, out[2] = p.parts, out[3] = p.log_block, out[4] = p.per;
+  return p.route < 0;
+}}
+extern "C" int k11dw_{cpt}_{xt}_{bps}_{runs}(const void* x, const void* g, void* partial, void* dw, void* tickets,
+    int b, int h, int wd, int c, int dil, long long sxb, long long sxh, long long sxw, long long sxc, long long sgb,
+    long long sgh, long long sgw, long long sgc, void* stream) {{
+  const Strides sx{{sxb, sxh, sxw, sxc}}, sg{{sgb, sgh, sgw, sgc}};
+  return launch_dw<bf16, Tiles<{cpt}, {xt}, {bps}, {runs}>>(x, g, static_cast<float*>(partial),
+      static_cast<float*>(dw), static_cast<unsigned*>(tickets), b, h, wd, c, dil, sx, sg,
+      static_cast<cudaStream_t>(stream));
+}}
 """), "k6": ("diff_attention_tc.cuh", """
 // q1, k1, q2, k2 share the strides sq (split views of one projection layout)
 template <class C>
@@ -160,10 +203,13 @@ _ARGTYPES = {"k8": [binding.P] * 9 + [binding.I] * 5 + [binding.P],
              "k12": [binding.I] * 2 + [binding.P] * 3 + [binding.I] * 4 + [binding.L] * 8 + [binding.P],
              "k6": [binding.P] * 16 + [binding.I] * 5 + [binding.L] * 9 + [binding.P],
              "k12bwd": [binding.I] * 2 + [binding.P] * 4 + [binding.I] * 4 + [binding.L] * 8 + [binding.I, binding.P],
-             "k11": [binding.I] + [binding.P] * 3 + [binding.I] * 4 + [binding.L] * 8 + [binding.P]}
+             "k11": [binding.I] + [binding.P] * 3 + [binding.I] * 4 + [binding.L] * 8 + [binding.P],
+             "k11dw": [binding.P] * 5 + [binding.I] * 5 + [binding.L] * 8 + [binding.P],
+             "k11dw_plan": [binding.I] * 5 + [binding.L] * 2 + [binding.P]}
 _KERNEL_SYMBOL = {"k8": "attention_bwd_fused_tc_kernel", "k6": "diff_bwd_one_tc_kernel", "k12": "conv_fwd_tc_kernel",
-                  "k12bwd": "conv_dw_tc_kernel", "k11": "dw3x3_"}
-_FIELDS = {"k12": ("nw", "mb", "kc", "st"), "k12bwd": ("m32", "m64", "th", "bps"), "k11": ("ov", "runs", "xt")}
+                  "k12bwd": "conv_dw_tc_kernel", "k11": "dw3x3_", "k11dw": "dw3x3_dw_"}
+_FIELDS = {"k12": ("nw", "mb", "kc", "st"), "k12bwd": ("m32", "m64", "th", "bps"), "k11": ("ov", "runs", "xt"),
+           "k11dw": ("cpt", "xt", "bps", "runs")}
 
 
 def compile_variants(kernel: str, out_dir: Path):
@@ -386,13 +432,70 @@ def k11_bench(lib, dev):
                 raise SystemExit(f"k11 tiling {t} disagrees with the wrapper at {site}: {row}")
 
 
+def _k11dw_input(shape, layout, gen, dev):
+    b, h, wd, c = shape
+    if layout == "cl":
+        return torch.randn(b, h, wd, c, generator=gen, device=dev).bfloat16()
+    if layout == "nchw":
+        return torch.randn(b, c, h, wd, generator=gen, device=dev).bfloat16().permute(0, 2, 3, 1)
+    return torch.randn(b, 64, h, wd, generator=gen, device=dev).bfloat16().permute(0, 2, 3, 1)[..., 20:20 + c]
+
+
+def k11dw_bench(lib, dev):
+    """K11 dw's tilings in bf16 at ``K11DW_SITES``: each on the cut ``dw_plan``
+    makes for it, held to the wrapper's dw within 1e-4 of its largest element,
+    timed in turns by CUDA events and by device time (``graph_ms`` on
+    ``rotated`` inputs). Prints one JSON line per (site, tiling)."""
+    from cenet_tpu_torch.ops import depthwise as DWK
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for site, shape, dil, xl, gl in K11DW_SITES:
+        x, g = _k11dw_input(shape, xl, gen, dev), _k11dw_input(shape, gl, gen, dev)
+        want = DWK.depthwise_dw(x, g, dil)
+        sets = rotated((x, g))
+        b, h, wd, c = shape
+        calls, outs, plans = {}, {}, {}
+        for t in TILINGS["k11dw"]:
+            plan_fn = getattr(lib, _name("k11dw_plan", t))
+            plan_fn.argtypes, plan_fn.restype = _ARGTYPES["k11dw_plan"], binding.I
+            plan = (ctypes.c_int * 5)()
+            if plan_fn(b, h, wd, c, dil, x.stride(3), g.stride(3), plan):
+                raise SystemExit(f"k11dw tiling {t}: no cut fits {site}")
+            fn = getattr(lib, _name("k11dw", t))
+            fn.argtypes, fn.restype = _ARGTYPES["k11dw"], binding.I
+            dw = torch.empty((3, 3, c), device=dev)
+            partial = torch.empty((plan[2], 9, c), device=dev)
+            tickets = torch.zeros(max(plan[1], 1024), dtype=torch.int32, device=dev)
+
+            def call(x=x, g=g, fn=fn, dw=dw, partial=partial, tickets=tickets):
+                binding.raise_on("k11dw tiling", fn(*binding.ptrs(x, g, partial, dw, tickets), b, h, wd, c, dil,
+                                                    *binding.strides(x, 4), *binding.strides(g, 4), binding.stream()))
+                return dw
+
+            calls[t], outs[t] = call, call().clone()
+            plans[t] = dict(zip(("route", "groups", "parts", "log_block", "per"), plan))
+        torch.cuda.synchronize()
+        times = _in_turns(calls)
+        dev_times = {t: graph_ms(call, sets) for t, call in calls.items()}
+        for t, got in outs.items():
+            err, lim = float((got - want).abs().max()), 1e-4 * float(want.abs().max())
+            row = {"kernel": "k11dw", "site": site, "shape_nhwc": list(shape), "dilation": dil, "x_layout": xl,
+                   "g_layout": gl, **_fields("k11dw", t), "plan": plans[t], "ms": times[t],
+                   "device_ms": dev_times[t], "max_abs_vs_wrapper": err, "limit": lim,
+                   "equal_to_wrapper": bool(torch.equal(got, want))}
+            print(json.dumps(row), flush=True)
+            if err > lim:
+                raise SystemExit(f"k11dw tiling {t} disagrees with the wrapper at {site}: {row}")
+        del sets
+
+
 def bench(kernel: str, dev):
     build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
         lib, report = compile_variants(kernel, Path(tmp))
     print("\n".join(report), file=sys.stderr)
-    if kernel in ("k12", "k12bwd", "k11"):
-        return {"k12": k12_bench, "k12bwd": k12bwd_bench, "k11": k11_bench}[kernel](lib, dev)
+    if kernel in ("k12", "k12bwd", "k11", "k11dw"):
+        return {"k12": k12_bench, "k12bwd": k12bwd_bench, "k11": k11_bench, "k11dw": k11dw_bench}[kernel](lib, dev)
     calls, want, exact, summed, names = (k6_calls if kernel == "k6" else k8_calls)(lib, dev)
     outs = {t: [x.clone() for x in call()] for t, call in calls.items()}
     torch.cuda.synchronize()

@@ -35,8 +35,12 @@ runs K10. Phases:
    K7 on the same inputs, under the twin's limits;
    2c. K9, K11 and K12 against their twins at every site shape of the swapped
    paths (batch 2, and the 32-slice chunk or the training batch of 8; fp32 and
-   bf16), repeat-run bit-identity of K11's forward and dw and of K12's
-   forward, dx and dw, and their times beside the bound and the library call;
+   bf16; K11's dw with x and g in the layouts that one train-mode backward of
+   the model at batch 2 hands over, recorded here), repeat-run bit-identity
+   of K11's forward and dw and of K12's forward, dx and dw, and their times
+   beside the bound and the library call (K11's dw also by device time: a
+   CUDA graph of calls on copies of its inputs that pass twice the L2,
+   ``tools/device_time.py``);
 3. slice parity: a seeded CENet-b2 (Synapse preset) on 2 slices at 224², fp32
    on the card (kernels routed) against fp32 on the CPU (twins), then bf16;
    3b. train-step parity: one fp32 forward/backward of the same model in train
@@ -76,10 +80,12 @@ runs K10. Phases:
    ms, launch counts, and one profiled step beside phase 7's, which must show
    K5 on K1's tensor-core kernel and K6's tensor-core kernel (two per step),
    and no K3 and no CUDA-core instance of K6;
-   7c. the same as phase 6's steps with K9, K11 and K12 swapped in, profiled
-   with phase 7's designs, K12's tensor-core forward (four per step, and four
-   more for the backward's dx), its tensor-core dw (four) and K11's tiled
-   forward (70: 35 forwards, 35 dx), and no bf16 instance of K12's CUDA-core
+   7c. the same as phase 6's steps with K9, K11 and K12 swapped in: the
+   layouts of x and g of the step's 35 K11 dw calls (required equal to phase
+   2c's), and a profile with phase 7's designs, K12's tensor-core forward
+   (four per step, and four more for the backward's dx), its tensor-core dw
+   (four), K11's tiled forward (70: 35 forwards, 35 dx) and tiled dw (35, by
+   the routes the wrapper counts), and no bf16 instance of K12's CUDA-core
    forward or backward;
    7d. phase 7b with K7 and K8 swapped in for K6 and K4
    (``split_route(swap_backwards=True)``): step ms, launch counts, and one
@@ -87,7 +93,9 @@ runs K10. Phases:
    and the dk/dv kernel with split dv rounding) and K8's fused tensor-core
    kernel exactly as counted, and no CUDA-core instance of either;
 8. the rotary path: ``MultiheadDiffAttn(use_rotary=True)`` at DSEB1's width,
-   batch 8, with K10 for its interleaved rotary, against the plain module.
+   batch 8, with K10 for its interleaved rotary, against the plain module,
+   K10 equal to the plain rotary to the bit, and a profile that shows K10's
+   kernel twice per forward and, for calls on the fp32 tables, alone.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``; the two before it
@@ -128,6 +136,8 @@ from cenet_tpu_torch.ops import depthwise as DWK  # noqa: E402
 from cenet_tpu_torch.ops import rms_norm as RMS  # noqa: E402
 from cenet_tpu_torch.ops import rotary as ROT  # noqa: E402
 from cenet_tpu_torch.ops import smallc_conv as SCK  # noqa: E402
+from cenet_tpu_torch.tools.device_time import graph_ms, rotated  # noqa: E402
+from cenet_tpu_torch.train.losses import Criterion  # noqa: E402
 from cenet_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -303,6 +313,23 @@ def time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_kernels(fn, ok, tries: int = 3):
+    """The CUDA kernel events (``torch.profiler``) of one run of ``fn``, profiled
+    again, up to ``tries`` times, while ``ok(events)`` is false: a session now
+    and then loses kernel records while it keeps their launches (PERF.md §7)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ok(kernels):
+            break
+    return kernels
 
 
 def split_args(args):
@@ -1106,7 +1133,10 @@ def phase_split_volume():
 # dx on K12's tensor-core forward, dw on its own tensor-core kernel, and the
 # CUDA-core backward (fp32; in bf16 only for a Cout outside 8, 16, 32, 64,
 # none at the OutHead sites); K11's forward in both dtypes, by layout
-# (dw3x3_cl_kernel channels-last, dw3x3_plane_kernel any other strides)
+# (dw3x3_cl_kernel channels-last, dw3x3_plane_kernel any other strides), its
+# dw (dw3x3_dw_cl_kernel where x and g are both channels-last,
+# dw3x3_dw_plane_kernel otherwise, counted by route in depthwise.DW_ROUTES;
+# the ordered sum in the launch); K10's vectorised rotary (csrc/rotary.cu)
 KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attention_bwd_dq_tc_kernel<",
                   "bwd_dkv_tc": r"attention_bwd_dkv_tc_kernel<",
                   "bwd_fused_tc": r"attention_bwd_fused_tc_kernel<",
@@ -1123,7 +1153,9 @@ KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attentio
                   "conv_fwd_cuda_core": r"conv_fwd_kernel<",
                   "conv_dw_tc": r"conv_dw_tc_kernel<",
                   "conv_bwd_cuda_core": r"conv_bwd_kernel<",
-                  "depthwise_fwd_tiled": r"dw3x3_(cl|plane)_kernel<"}
+                  "depthwise_fwd_tiled": r"dw3x3_(cl|plane)_kernel<",
+                  "depthwise_dw_tiled": r"dw3x3_dw_(cl|plane)_kernel<",
+                  "rotary_vec": r"rotary_vec_kernel<"}
 # the kernels one bf16 call of each such wrapper launches, by design
 BF16_DESIGNS = {"attention_fwd": ("fwd_tc",), "attention_bwd": ("bwd_dq_tc", "bwd_dkv_tc"),
                 "diff_attention_interleaved_fwd": ("diff_fwd_tc",),
@@ -1131,7 +1163,8 @@ BF16_DESIGNS = {"attention_fwd": ("fwd_tc",), "attention_bwd": ("bwd_dq_tc", "bw
                 "diff_attention_fwd": ("diff_fwd_tc",), "diff_attention_bwd": ("diff_bwd_one_tc",),
                 "diff_attention_bwd_split": ("diff_bwd_dq_tc", "diff_bwd_dkv_split_tc"),
                 "attention_bwd_fused": ("bwd_fused_tc",), "conv_small_c_fwd": ("conv_fwd_tc",),
-                "conv_small_c_bwd": ("conv_fwd_tc", "conv_dw_tc"), "depthwise_fwd": ("depthwise_fwd_tiled",)}
+                "conv_small_c_bwd": ("conv_fwd_tc", "conv_dw_tc"), "depthwise_fwd": ("depthwise_fwd_tiled",),
+                "depthwise_dw": ("depthwise_dw_tiled",), "rotary": ("rotary_vec",)}
 
 
 def kernel_designs(kernels):
@@ -1397,8 +1430,10 @@ def swapped_ops(log=None):
     (K12), each plus its bias; every other conv keeps cuDNN. Interleaved rotary
     (``ops.rotary.apply_rotary_emb``) goes through K10: de-interleave the head
     dim, K10, re-interleave. ``log``: a list that gets one entry per swapped
-    call (kernel, shapes). The package itself has no switch."""
+    call (kernel, shapes), and one per K11 dw call of a backward with the
+    layouts of x and g (``dw_layout``). The package itself has no switch."""
     rms_forward, conv_forward, plain_rotary = L.RMSNorm.forward, L.Conv2d.forward, ROT.apply_rotary_emb
+    dw_kernel = DWK.depthwise_dw
 
     def rms(self, x):
         if not x.is_cuda:
@@ -1433,30 +1468,81 @@ def swapped_ops(log=None):
             return ROT.reinterleave(ROT.apply_rotary_emb_kernel(ROT.deinterleave(x), cos, sin))
         return plain_rotary(x, cos, sin, interleaved)
 
+    def dw(x, g, dilation=1):
+        if log is not None:
+            log.append(("depthwise_dw", tuple(x.shape), dilation, dw_layout(x), dw_layout(g)))
+        return dw_kernel(x, g, dilation)
+
     L.RMSNorm.forward, L.Conv2d.forward, ROT.apply_rotary_emb = rms, conv, rotary
+    DWK.depthwise_dw = dw  # DepthwiseConvFn.backward's call
     try:
         yield
     finally:
         L.RMSNorm.forward, L.Conv2d.forward, ROT.apply_rotary_emb = rms_forward, conv_forward, plain_rotary
+        DWK.depthwise_dw = dw_kernel
+
+
+def dw_layout(t):
+    """An NHWC tensor's layout as a K11 dw call receives it: (element strides,
+    storage offset), which the batch size does not change."""
+    return tuple(t.stride()), t.storage_offset()
+
+
+def layout_name(layout):
+    """channels-last (unit channel stride), NCHW (unit W stride) or other."""
+    strides = layout[0]
+    return "channels_last" if strides[3] == 1 else "nchw" if strides[2] == 1 else "other"
+
+
+def dw_layout_counts(log):
+    """{(map shape without the batch, dilation, x layout, g layout): calls} of the
+    K11 dw entries of a swapped ``log``."""
+    return collections.Counter((site[1][1:], *site[2:]) for site in log if site[0] == "depthwise_dw")
 
 
 def swapped_sites():
     """Every swapped call of one bf16 forward of CENet-b2 (Synapse preset) at
-    batch 2: {(kernel, shapes at batch 2, …): calls per forward}."""
-    model = build_model(get_preset("synapse"), device=DEV, seed=0)
-    log = []
+    batch 2: {(kernel, shapes at batch 2, …): calls per forward}; and every K11
+    dw call of one bf16 train-mode forward and backward at batch 2, with the
+    layouts of x and g that the backward hands over."""
+    cfg = get_preset("synapse")
+    model = build_model(cfg, device=DEV, seed=0)
+    log, train_log = [], []
     with torch.inference_mode(), swapped_ops(log):
         model(torch.zeros(2, 1, 224, 224, device=DEV, dtype=torch.bfloat16))
-    del model
-    counts = collections.Counter(log)
+    # the train step's forward and backward (Trainer.loss_and_grads) on 2 labelled images
+    model.train()
+    L.set_generator(model, torch.Generator(device=DEV).manual_seed(0))
+    images, labels = labelled_slices(11, 2, 224)
+    criterion = Criterion(cfg.model.num_classes, cfg.train.loss_type, cfg.train.loss_weights)
+    with swapped_ops(train_log):
+        loss = criterion(model(images.to(DEV, torch.bfloat16)).float(), labels.to(DEV))
+        torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    del model, loss
+    counts = collections.Counter(log) + collections.Counter(e for e in train_log if e[0] == "depthwise_dw")
     got = {k: sum(n for site, n in counts.items() if site[0] == kind)
-           for k, kind in (("rms_norm", "rms_norm"), ("depthwise_fwd", "depthwise"), ("conv_small_c_fwd", "smallc"))}
-    check(got == SWAPPED_PER_FORWARD, f"swapped sites per forward {got}, expected {SWAPPED_PER_FORWARD}")
+           for k, kind in (("rms_norm", "rms_norm"), ("depthwise_fwd", "depthwise"), ("conv_small_c_fwd", "smallc"),
+                           ("depthwise_dw", "depthwise_dw"))}
+    want = {**SWAPPED_PER_FORWARD, "depthwise_dw": TRAIN_PER_STEP["swapped"]["depthwise_dw"]}
+    check(got == want, f"swapped sites per forward (dw per backward) {got}, expected {want}")
     return counts
 
 
 def with_batch(shape, b):
     return (b, *shape[1:])
+
+
+def strided_input(shape, layout, dtype, gen):
+    """An NHWC tensor of ``shape`` with the element strides and storage offset of
+    ``layout`` (``dw_layout``), as the train step hands it to K11's dw."""
+    strides, offset = layout
+    if 0 in strides:  # an expanded gradient: the same values along that dim
+        base = torch.randn([1 if st == 0 else n for n, st in zip(shape, strides)], generator=gen, device=DEV)
+        return base.to(dtype).expand(shape)
+    size = offset + 1 + sum((n - 1) * st for n, st in zip(shape, strides))
+    t = torch.zeros(size, dtype=dtype, device=DEV).as_strided(shape, strides, offset)
+    t.copy_(torch.randn(shape, generator=gen, device=DEV))
+    return t
 
 
 def nhwc_input(shape, channels_last, dtype, gen, scale=1.0):
@@ -1490,9 +1576,11 @@ def elem_bound(flops, nbytes):
 def swap_site_rows(counts):
     """K9, K11 and K12 against their twins at every site shape of the swapped
     paths: batch 2 and the path's own batch (32-slice chunk for the forwards,
-    training batch 8 for the backward kernels), fp32 and bf16; times (bf16, at
-    the path's batch) of kernel, twin and library call, and the bound. Yields
-    one row per (kernel, site shape), with its calls per forward."""
+    training batch 8 for the backward kernels; K11's dw with x and g in the
+    layouts the backward hands over), fp32 and bf16; times (bf16, at the path's
+    batch) of kernel, twin and library call (CUDA events; for K11's dw also the
+    device time, ``graph_ms`` on ``rotated`` inputs), and the bound. Yields one row per
+    (kernel, site shape), with its calls per forward."""
     gen = torch.Generator(device=DEV).manual_seed(13)
     f = torch.nn.functional
     for site, calls in sorted(counts.items(), key=str):
@@ -1519,30 +1607,19 @@ def swap_site_rows(counts):
             c = shape[-1]
             row = {"kernel": "depthwise_fwd", "site": shape, "dilation": dil, "channels_last": cl,
                    "calls_per_forward": calls}
-            drow = {"kernel": "depthwise_dw", "site": shape, "dilation": dil, "channels_last": cl,
-                    "calls_per_forward": calls}
             w = torch.randn(3, 3, 1, c, generator=gen, device=DEV)
-            for b, label in ((2, "b2"), (CHUNK, "chunk"), (TRAIN_B, f"b{TRAIN_B}")):
+            for b, label in ((2, "b2"), (CHUNK, "chunk")):
                 for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
                     x = nhwc_input(with_batch(shape, b), cl, dtype, gen)
                     where = f"{shape} dilation {dil} {label} {dname}"
-                    if label != f"b{TRAIN_B}":
-                        y = DWK.depthwise_fwd(x, w, dil)
-                        r = close_check(y, DWK.depthwise_fwd_plain(x.float(), w, dil), dtype, f"depthwise_fwd {where}")
-                        row.update({f"{label}_{dname}_{k}": v for k, v in r.items()})
-                        # every output element from one thread: two runs give the same bits
-                        same = bool(torch.equal(y, DWK.depthwise_fwd(x, w, dil)))
-                        row[f"{label}_{dname}_repeat_bit_identical"] = same
-                        check(same, f"depthwise_fwd {where}: repeat runs differ")
-                        del y
-                    if label != "chunk":
-                        g = nhwc_input(with_batch(shape, b), False, dtype, gen)
-                        dw = DWK.depthwise_dw(x, g, dil)
-                        r = close_check(dw, DWK.depthwise_dw_plain(x.float(), g.float(), dil), torch.float32,
-                                        f"depthwise_dw {where}")
-                        drow.update({f"{label}_{dname}_{k}": v for k, v in r.items()})
-                        drow["repeat_bit_identical"] = bool(torch.equal(dw, DWK.depthwise_dw(x, g, dil)))
-                        check(drow["repeat_bit_identical"], f"depthwise_dw {where}: repeat runs differ")
+                    y = DWK.depthwise_fwd(x, w, dil)
+                    r = close_check(y, DWK.depthwise_fwd_plain(x.float(), w, dil), dtype, f"depthwise_fwd {where}")
+                    row.update({f"{label}_{dname}_{k}": v for k, v in r.items()})
+                    # every output element from one thread: two runs give the same bits
+                    same = bool(torch.equal(y, DWK.depthwise_fwd(x, w, dil)))
+                    row[f"{label}_{dname}_repeat_bit_identical"] = same
+                    check(same, f"depthwise_fwd {where}: repeat runs differ")
+                    del y
             x = nhwc_input(with_batch(shape, CHUNK), cl, torch.bfloat16, gen)
             xn, wn = x.permute(0, 3, 1, 2), w.to(torch.bfloat16).permute(3, 2, 0, 1)
             row["ms"] = time_ms(lambda: DWK.depthwise_fwd(x, w, dil))
@@ -1550,15 +1627,42 @@ def swap_site_rows(counts):
             row["library_ms"] = time_ms(lambda: f.conv2d(xn, wn, padding=dil, dilation=dil, groups=c))
             row["ops_ms"], row["bytes_ms"] = elem_bound(18 * x.numel(), 2 * 2 * x.numel() + 4 * 9 * c)
             yield row
-            x = nhwc_input(with_batch(shape, TRAIN_B), cl, torch.bfloat16, gen)
-            g = nhwc_input(with_batch(shape, TRAIN_B), False, torch.bfloat16, gen)
-            xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-            drow["ms"] = time_ms(lambda: DWK.depthwise_dw(x, g, dil))
-            drow["plain_ms"] = time_ms(lambda: DWK.depthwise_dw_plain(x, g, dil), reps=2)
-            drow["library_ms"] = time_ms(lambda: torch.ops.aten.convolution_backward(
-                gn, xn, wn, None, [1, 1], [dil, dil], [dil, dil], False, [0, 0], c, [False, True, False]))
-            drow["ops_ms"], drow["bytes_ms"] = elem_bound(18 * x.numel(), 2 * 2 * x.numel() + 4 * 9 * c)
-            yield drow
+        elif kind == "depthwise_dw":
+            # the dw call as the backward makes it: x and g in the layouts it hands over
+            _, shape, dil, xl, gl = site
+            c = shape[-1]
+            row = {"kernel": "depthwise_dw", "site": shape, "dilation": dil, "x_layout": layout_name(xl),
+                   "g_layout": layout_name(gl), "x_strides": xl[0], "g_strides": gl[0], "calls_per_forward": calls}
+            for b, label in ((2, "b2"), (TRAIN_B, f"b{TRAIN_B}")):
+                for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                    x, g = (strided_input(with_batch(shape, b), lay, dtype, gen) for lay in (xl, gl))
+                    where = f"{shape} dilation {dil} {label} {dname}"
+                    dw = DWK.depthwise_dw(x, g, dil)
+                    row["route"] = DWK.dw_plan(x, g, dil)[0]
+                    r = close_check(dw, DWK.depthwise_dw_plain(x.float(), g.float(), dil), torch.float32,
+                                    f"depthwise_dw {where}")
+                    row.update({f"{label}_{dname}_{k}": v for k, v in r.items()})
+                    same = bool(torch.equal(dw, DWK.depthwise_dw(x, g, dil)))
+                    row[f"{label}_{dname}_repeat_bit_identical"] = same
+                    check(same, f"depthwise_dw {where}: repeat runs differ")
+            x, g = (strided_input(with_batch(shape, TRAIN_B), lay, torch.bfloat16, gen) for lay in (xl, gl))
+            wn = torch.randn(c, 1, 3, 3, generator=gen, device=DEV).to(torch.bfloat16)
+
+            def library(x, g):
+                return torch.ops.aten.convolution_backward(g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wn, None,
+                                                           [1, 1], [dil, dil], [dil, dil], False, [0, 0], c,
+                                                           [False, True, False])
+
+            # device time: a CUDA graph of calls on copies of x and g that pass twice the L2
+            sets = rotated((x, g))
+            row["ms"] = time_ms(lambda: DWK.depthwise_dw(x, g, dil))
+            row["device_ms"] = graph_ms(lambda x, g: DWK.depthwise_dw(x, g, dil), sets)
+            row["plain_ms"] = time_ms(lambda: DWK.depthwise_dw_plain(x, g, dil), reps=2)
+            row["library_ms"] = time_ms(lambda: library(x, g))
+            row["library_device_ms"] = graph_ms(library, sets)
+            del sets
+            row["ops_ms"], row["bytes_ms"] = elem_bound(18 * x.numel(), 2 * 2 * x.numel() + 4 * 9 * c)
+            yield row
         elif kind == "smallc":
             _, shape, wshape, pad, cl = site
             k, cin, cout = wshape[0], wshape[2], wshape[3]
@@ -1622,8 +1726,9 @@ def swap_site_rows(counts):
 
 def phase_swap_kernels():
     """K9, K11 and K12 against their twins at every site shape (``swap_site_rows``).
-    Returns the rows (each with its calls per forward) and each kernel's
-    largest bf16 error against its twin."""
+    Returns the rows (each with its calls per forward), each kernel's
+    largest bf16 error against its twin, and the layouts of K11's dw calls
+    (``dw_layout_counts``) at batch 2."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counts = swapped_sites()
@@ -1632,6 +1737,8 @@ def phase_swap_kernels():
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         row["bound_by"] = bound_by(row["ops_ms"], row["bytes_ms"])
         row["roofline_share"] = row["bound_ms"] / row["ms"]
+        if "device_ms" in row:
+            row["device_roofline_share"] = row["bound_ms"] / row["device_ms"]
         emit({"phase": "swap_kernels", **{k: (list(v) if isinstance(v, tuple) else v) for k, v in row.items()}})
         rows.append(row)
     errs = {}
@@ -1640,7 +1747,7 @@ def phase_swap_kernels():
                 or k.endswith("bf16_dw_err"))
         errs[row["kernel"]] = max(errs.get(row["kernel"], 0.0), e)
     binding.reset_launches()
-    return rows, errs
+    return rows, errs, dw_layout_counts(counts.elements())
 
 
 def phase_swapped_volume():
@@ -1785,31 +1892,47 @@ def phase_swapped_train_parity(card, x2, y2, w_loss, w_grads, names, live):
     return launched
 
 
-def phase_swapped_train(trainer, images, labels, steps=10):
+def phase_swapped_train(trainer, images, labels, dw_layouts, steps=10):
     """Phase 6's bf16 trainer on its resident batch with K9, K11 and K12 swapped
-    in: step ms over ``steps`` steps (CUDA events), every loss finite, launch
-    counts checked exactly, and one profiled step beside phase 7's, with the
-    same attention designs, K12's tensor-core forward (its forwards and its
-    backwards' dx) and dw, and K11's tiled forward as often as counted (no
-    bf16 instance of K12's CUDA-core forward or backward)."""
+    in: the layouts of x and g that each of the step's 35 K11 dw calls
+    receives (one logged step; they must be those of phase 2c's dw rows,
+    ``dw_layouts``), step ms over ``steps`` steps (CUDA events), every loss
+    finite, launch counts and K11 dw's routes checked exactly, and one profiled
+    step beside phase 7's, with the same attention designs, K12's tensor-core
+    forward (its forwards and its backwards' dx) and dw, K11's tiled forward
+    and tiled dw as often as counted
+    (no bf16 instance of K12's CUDA-core forward or backward)."""
+    log = []
+    with swapped_ops(log):
+        trainer.train_step(images, labels)  # warm-up, logged
+    step_layouts = dw_layout_counts(log)
+    emit({"phase": "swapped_train_dw_layouts",
+          "calls": [{"site": list(k[0]), "dilation": k[1], "x_layout": layout_name(k[2]), "x_strides": k[2][0],
+                     "x_offset": k[2][1], "g_layout": layout_name(k[3]), "g_strides": k[3][0],
+                     "g_offset": k[3][1], "calls": n} for k, n in sorted(step_layouts.items(), key=str)]})
+    check(step_layouts == dw_layouts, f"K11 dw layouts of the step {dict(step_layouts)} are not phase 2c's "
+          f"{dict(dw_layouts)}")
     with swapped_ops():
-        trainer.train_step(images, labels)  # warm-up
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         binding.reset_launches()
+        DWK.DW_ROUTES.clear()
         losses = []
         start.record()
         for _ in range(steps):
             losses.append(trainer.train_step(images, labels))
         end.record()
         torch.cuda.synchronize()
-        launched = dict(binding.LAUNCHES)
+        launched, routes = dict(binding.LAUNCHES), dict(DWK.DW_ROUTES)
         prof = profile_step(trainer, images, labels)
     loss_values = torch.stack(losses).cpu().tolist()
     emit({"phase": "swapped_train", "steps": steps, "resident_step_ms": start.elapsed_time(end) / steps,
-          "losses": loss_values, "launches": launched, "profile": prof})
+          "losses": loss_values, "launches": launched, "dw_routes_per_step": {k: v / steps for k, v in routes.items()},
+          "profile": prof})
     check(all(np.isfinite(loss_values)), f"a swapped training loss is not finite: {loss_values}")
     check_launches(launched, TRAIN_PER_STEP["swapped"], steps, f"swapped train, {steps} steps")
+    check(sum(routes.values()) == launched["depthwise_dw"] and all(v % steps == 0 for v in routes.values()),
+          f"K11 dw routes {routes} over {steps} steps")
     check_designs(prof["kernel_designs"], TRAIN_PER_STEP["swapped"], "swapped bf16 train step profile")
     return launched
 
@@ -1822,8 +1945,14 @@ def phase_rotary(n=3136):
     max |out| and bf16 within 2·2^-8 (K10 rounds every product and sum in x's
     dtype, as the plain rotary does, so both read 0 unless the card's K1 or K9
     differ between the runs); the K10 composition on the module's own q and k
-    against the plain rotary; K10 timed on q against its twin. Returns the bf16 run's launch counts and the
-    kernel's row."""
+    against the plain rotary, within those limits and equal to the bit; the bf16
+    forward's kernels by design from ``torch.profiler`` (K10's vectorised kernel
+    twice, K1 once) and four K10 calls on the fp32 tables, which must launch its
+    kernel alone (the tables are rounded in the kernel, not cast first); K10
+    timed on q (CUDA events, and device time by ``graph_ms``) against its twin.
+    K10 runs before the plain module and rotary on the same inputs, so its
+    outputs cannot pass by landing in a buffer that holds the plain result.
+    Returns the bf16 run's launch counts and the kernel's row."""
     torch.backends.cuda.matmul.allow_tf32 = False
     e, heads = 128, 8
     hd = e // heads // 2
@@ -1835,8 +1964,9 @@ def phase_rotary(n=3136):
     row = {"kernel": "rotary", "site": [TRAIN_B, 2 * heads, n, hd]}
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         xd = x.to(dtype)
+        # K10's runs before the plain ones: no buffer that K10's output lands in
+        # can hold a plain result on the same inputs
         with torch.inference_mode():
-            plain = module(xd, (cos, sin))
             binding.reset_launches()
             with swapped_ops():
                 swapped = module(xd, (cos, sin))
@@ -1846,6 +1976,7 @@ def phase_rotary(n=3136):
             k = module.k_proj(xd).reshape(TRAIN_B, n, 2 * heads, hd).transpose(1, 2)
             with swapped_ops():
                 qk = [ROT.apply_rotary_emb(t, cos, sin, interleaved=True) for t in (q, k)]
+            plain = module(xd, (cos, sin))
             qk_plain = [ROT.apply_rotary_emb(t, cos, sin, interleaved=True) for t in (q, k)]
         check_launches(launched, ROTARY_PER_FORWARD, 1, f"rotary path ({dname})")
         tol = 1e-6 if dtype == torch.float32 else 2 * BF16_REL
@@ -1855,13 +1986,41 @@ def phase_rotary(n=3136):
         for name, got, want in zip("qk", qk, qk_plain):
             row.update({f"{dname}_{name}_{kk}": v for kk, v in close_check(got, want, dtype, f"rotary {name} {dname}",
                                                                           fp32_tol=1e-6).items()})
+            row[f"{dname}_{name}_bit_equal"] = bool(torch.equal(got, want))
+            check(row[f"{dname}_{name}_bit_equal"], f"rotary {name} {dname}: K10 differs from the plain rotary")
+    # the bf16 forward's kernels by design: K10's vectorised kernel twice (q, k),
+    # K1 once; and K10 calls on fp32 tables: its kernel alone, no table cast
+    want = expected_designs(ROTARY_PER_FORWARD)
+
+    def by_design(kernels):
+        return {r: d["calls"] for r, d in kernel_designs(kernels).items()}
+
+    # a session of one K10 call lost its only kernel record twice running (PERF.md
+    # §7): four calls, of which the profile must hold K10's kernel and no other
+    calls = 4
+
+    def alone(kernels):
+        return 1 <= sum(e.count for e in kernels) <= calls and all("rotary_vec_kernel<" in e.key for e in kernels)
+
     qd = ROT.deinterleave(q)
+    with torch.inference_mode(), swapped_ops():
+        forward = profiled_kernels(lambda: module(xd, (cos, sin)),
+                                   lambda ks: all(by_design(ks)[r] == want[r] for r in KERNEL_DESIGNS))
+        call = profiled_kernels(lambda: [ROT.apply_rotary_emb_kernel(qd, cos, sin) for _ in range(calls)], alone)
+    row.update({"bf16_kernel_designs": by_design(forward), "bf16_call_kernels": {e.key[:80]: e.count for e in call}})
+    check_designs(kernel_designs(forward), ROTARY_PER_FORWARD, "rotary bf16 forward profile")
+    check(alone(call), f"{calls} K10 calls on fp32 tables launched {row['bf16_call_kernels']}, expected its kernel "
+                       "alone")
     row["ms"] = time_ms(lambda: ROT.apply_rotary_emb_kernel(qd, cos, sin))
+    # device time: a CUDA graph of calls on copies of q that pass twice the L2
+    row["device_ms"] = graph_ms(lambda t: ROT.apply_rotary_emb_kernel(t, cos, sin), rotated((qd,)))
     row["plain_ms"] = time_ms(lambda: ROT.apply_rotary_emb_kernel_plain(qd, cos, sin))
     row["library_ms"] = None
-    row["ops_ms"], row["bytes_ms"] = elem_bound(3 * qd.numel(), 2 * 2 * qd.numel() + 2 * 2 * cos.numel())
+    # x read and written in bf16, the fp32 tables read once
+    row["ops_ms"], row["bytes_ms"] = elem_bound(3 * qd.numel(), 2 * 2 * qd.numel() + 2 * 4 * cos.numel())
     row["bound_ms"], row["bound_by"] = max(row["ops_ms"], row["bytes_ms"]), bound_by(row["ops_ms"], row["bytes_ms"])
     row["roofline_share"] = row["bound_ms"] / row["ms"]
+    row["device_roofline_share"] = row["bound_ms"] / row["device_ms"]
     row["max_abs_err"] = max(row["bf16_q_err"], row["bf16_k_err"])
     emit({"phase": "rotary", **row})
     del module
@@ -1882,22 +2041,24 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sources, "dir": str(build._build_dir()),
           "sm_count": sms, "max_sm_clock_mhz": mhz, "ex2_per_s": exp_rate})
 
+    launches = {}
     sites, errs = phase_kernels(exp_rate)
     phase_small_limit()
     bwd_sites, bwd_errs, train_fwd_errs = phase_bwd_kernels(exp_rate)
     errs = {k: max(e, train_fwd_errs[k]) for k, e in errs.items()}
-    swap_rows, swap_errs = phase_swap_kernels()
+    swap_rows, swap_errs, dw_layouts = phase_swap_kernels()
     phase_slice_parity()
     live, _ = phase_train_parity()
     phase_split_train_parity(live)
-    launches = {"volume": phase_volume(), "volume-split": phase_split_volume(),
-                "volume-swapped": phase_swapped_volume()}
+    launches.update({"volume": phase_volume(), "volume-split": phase_split_volume(),
+                     "volume-swapped": phase_swapped_volume()})
     phase_profile()
     launches["train"], trainer, images, labels = phase_train()
     phase_train_profile(trainer, images, labels)
     launches["train-split"] = phase_split_train(trainer, images, labels)
-    launches["train-swapped"] = phase_swapped_train(trainer, images, labels)
+    launches["train-swapped"] = phase_swapped_train(trainer, images, labels, dw_layouts)
     launches["train-split, K7 and K8"] = phase_split_train(trainer, images, labels, swap_backwards=True)
+    del trainer, images, labels
     launches["rotary"], rotary_row = phase_rotary()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
 

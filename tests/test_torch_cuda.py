@@ -20,9 +20,11 @@ card's rsqrtf and fused multiply-adds), and for the convolutions 1e-4 of max
 and 1e-5 in norm (order of summation); bf16 outputs within two bf16
 half-ulps of max |want| (2·2^-8), fp32 weight gradients as in fp32. K12's
 bf16 forward and backward (the tensor-core implicit GEMMs, and the CUDA-core
-dx of the shape rule) at every kernel size and input width of its domain, and
-K11's forward at every dilation of its domain in both layouts, with their
-repeat-run bit-identity.
+dx of the shape rule) at every kernel size and input width of its domain,
+K11's forward at every dilation of its domain in both layouts, and K11's dw at
+every dilation on every route of its layout rule and at the train step's size
+classes, with their repeat-run bit-identity; K10 equal to its twin to the bit
+at head dims 6–128 on fp32 tables and on tables in x's dtype.
 
 Marked ``cuda``; each test skips without a CUDA device. This file imports no
 JAX, so it runs where only PyTorch is installed:
@@ -815,3 +817,74 @@ def test_cuda_depthwise_fwd_every_dilation_and_layout(cuda, dtype):
                 assert got.stride() == x.stride(), where
                 _assert_close(got, want, dtype, where)
                 assert torch.equal(got, again), where
+
+
+def _dw_input(shape, layout, dtype, g, dev):
+    """NHWC values laid out as channels-last, as the view of NCHW memory, or as a
+    channel slice of a wider channels-last tensor (unit channel stride, no
+    16-byte channel vectors)."""
+    b, h, w, c = shape
+    if layout == "cl":
+        return torch.randn(b, h, w, c, generator=g).to(dev, dtype)
+    if layout == "nchw":
+        return torch.randn(b, c, h, w, generator=g).to(dev, dtype).permute(0, 2, 3, 1)
+    return torch.randn(b, h, w, c + 9, generator=g).to(dev, dtype)[..., 5:5 + c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_depthwise_dw_every_dilation_and_layout(cuda, dtype):
+    """K11's dw at dilations 1–5 on both routes of its layout rule (both
+    channels-last, channel slices, both NCHW views, and the two mixed layouts,
+    which take the plane route), C not a multiple of the 16-byte vector, W
+    smaller than a task of 8 positions, and one site of each size class of the
+    train step at batch 8: within the fp32 limits of the twin, through the route
+    the rule names, and bit-identical over two runs."""
+    g = torch.Generator().manual_seed(19)
+    routes = {("cl", "cl"): "channels_last", ("slice", "cl"): "channels_last", ("nchw", "nchw"): "planes",
+              ("nchw", "cl"): "planes", ("cl", "nchw"): "planes"}
+    cases = [((2, 13, 19, 24), d, *lay) for d in range(1, 6) for lay in routes]
+    cases += [((2, 9, 3, 20), 1, "cl", "cl"), ((1, 6, 5, 13), 2, "nchw", "nchw"), ((3, 7, 6, 5), 3, "nchw", "cl"),
+              ((2, 11, 4, 36), 4, "slice", "cl")]
+    cases += [((8, 56, 56, 512), 1, "cl", "cl"), ((8, 28, 28, 1024), 1, "cl", "cl"), ((8, 14, 14, 1280), 1, "cl", "cl"),
+              ((8, 7, 7, 2048), 1, "cl", "cl"), ((8, 56, 56, 256), 1, "nchw", "nchw"),
+              ((8, 56, 56, 128), 1, "nchw", "cl"), ((8, 7, 7, 2048), 1, "nchw", "nchw"),
+              ((8, 56, 56, 20), 5, "slice", "cl"), ((8, 14, 14, 100), 3, "nchw", "nchw")]
+    for shape, dil, xl, gl in cases:
+        x, gg = _dw_input(shape, xl, dtype, g, cuda), _dw_input(shape, gl, dtype, g, cuda)
+        where = ("dw", shape, dil, xl, gl)
+        before = dict(DW.DW_ROUTES)
+        got, again = DW.depthwise_dw(x, gg, dil), DW.depthwise_dw(x, gg, dil)
+        want = DW.depthwise_dw_plain(x.float(), gg.float(), dil)
+        torch.cuda.synchronize()
+        assert DW.DW_ROUTES[routes[xl, gl]] - before.get(routes[xl, gl], 0) == 2, where
+        _assert_close(got, want, torch.float32, where)
+        assert torch.equal(got, again), where
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rotary_bit_equal_every_head_dim(cuda, dtype):
+    """K10 at D = 8, 16, 32, 64 and 128 (and D = 6, 10, whose halves take no
+    16-byte vector), an odd N, contiguous x, a transposed (B, N, H, D) view and a
+    view at an odd element offset, with the tables in fp32 (rounded in the
+    kernel) and in x's dtype: equal to its twin to the bit."""
+    g = torch.Generator().manual_seed(20)
+    b, h, n = 2, 3, 97
+    for d in (8, 16, 32, 64, 128, 6, 10):
+        cos, sin = RO.make_rotary_tables(n, d, device=cuda)
+        cos, sin = 3 * cos, 2 * sin  # entries that bf16 rounds
+        for view in ("contiguous", "transposed", "offset"):
+            if view == "contiguous":
+                x = torch.randn(b, h, n, d, generator=g).to(cuda, dtype)
+            elif view == "transposed":
+                x = torch.randn(b, n, h, d, generator=g).to(cuda, dtype).transpose(1, 2)
+            else:
+                x = torch.randn(b, h, n, d + 1, generator=g).to(cuda, dtype)[..., 1:]
+            # the kernel's runs first: its outputs cannot land in a buffer that
+            # holds the twin's result
+            got = {t: RO.apply_rotary_emb_kernel(x, cos.to(t), sin.to(t)) for t in (torch.float32, dtype)}
+            want = RO.apply_rotary_emb_kernel_plain(x, cos, sin)
+            torch.cuda.synchronize()
+            for t, out in got.items():
+                assert out.is_contiguous() and torch.equal(out, want), (d, view, t, dtype)
