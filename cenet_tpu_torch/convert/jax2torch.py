@@ -142,8 +142,9 @@ def state_dict_from_jax(variables: Dict[str, Any], model_version: str = "cenet")
     for collection in variables:
         for path, leaf in _flatten(variables[collection]):
             key = torch_key_for(path, collection, model_version, siblings)
-            arr = np.ascontiguousarray(_to_torch_layout(np.asarray(leaf), path))
-            sd[key] = torch.from_numpy(arr.copy())
+            # np.array, not np.ascontiguousarray, which makes a 0-d leaf (the Nonlocal
+            # gates' ``w``) a (1,) array
+            sd[key] = torch.from_numpy(np.array(_to_torch_layout(np.asarray(leaf), path), order="C"))
             if collection == "batch_stats" and key.endswith(".running_mean"):
                 sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return sd

@@ -10,11 +10,10 @@ import torch
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names another.
 
-    With ``device=None`` this is ``cuda``; without a CUDA device that raises
+    With ``device=None`` this is ``cuda``; a CUDA device without one raises
     instead of quietly running on the CPU. Pass ``device="cpu"`` to run there.
     """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev

@@ -9,9 +9,11 @@ distances are defined as:
     hd95       = max(P95(d(A→B)), P95(d(B→A)))
     assd       = mean(concat(d(A→B), d(B→A)))
 
-implemented here with scipy. A copy of ``cenet_tpu/evaluate/metrics.py`` without
-its optional native EDT (a loader of the port's own for ``native/edt.cpp`` is
-later work). Empty-mask conventions follow the reference call sites:
+A copy of ``cenet_tpu/evaluate/metrics.py``. The EDT is the repository's C++
+``native/edt.cpp`` through the port's own loader (:mod:`cenet_tpu_torch.native`),
+built at first use; a failed build raises rather than falling back to scipy,
+whose ``distance_transform_edt`` is the plain version the tests hold it to.
+Empty-mask conventions follow the reference call sites:
 ``calculate_metric_percase`` returns (1, 0) if only gt empty, (0, 0) if pred empty
 (``utils_synapse.py:12-22``).
 """
@@ -23,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 from scipy import ndimage
 
+from cenet_tpu_torch.native import edt
 
 def _binary(x: np.ndarray) -> np.ndarray:
     return np.atleast_1d(np.asarray(x).astype(bool))
@@ -59,8 +62,7 @@ def _surface_distances(a: np.ndarray, b: np.ndarray, voxelspacing=None) -> np.nd
         raise RuntimeError("the second input does not contain any binary object")
     border_a = _surface_border(a)
     border_b = _surface_border(b)
-    dt = ndimage.distance_transform_edt(~border_b, sampling=voxelspacing)
-    return dt[border_a]
+    return edt(~border_b, sampling=voxelspacing)[border_a]
 
 
 def hd95(pred: np.ndarray, gt: np.ndarray, voxelspacing=None) -> float:

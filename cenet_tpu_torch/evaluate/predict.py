@@ -1,9 +1,12 @@
-"""The eval forward: counterpart of ``Trainer.make_eval_step`` (``cenet_tpu/train/trainer.py:235-247``).
+"""The eval forwards: counterparts of ``Trainer.make_eval_step`` and
+``Trainer.make_multi_eval_step`` (``cenet_tpu/train/trainer.py:235-264``).
 
 The model runs in eval mode (set again on every call, since a trainer may have
 put it in train mode between calls) on images cast to the compute dtype (bf16 under the
-mixed-precision policy, fp32 otherwise) with its fp32 parameters cast at use,
-and returns fp32 class probabilities (softmax over dim 1).
+mixed-precision policy, fp32 otherwise) with its fp32 parameters cast at use.
+:func:`make_predict_fn` returns fp32 class probabilities (softmax over dim 1);
+:func:`make_predict_many_fn` runs a stack of chunks and returns their labels,
+the argmax of the logits in the compute dtype, as the JAX scan body takes it.
 """
 
 from __future__ import annotations
@@ -26,3 +29,17 @@ def make_predict_fn(model: nn.Module, compute_dtype: torch.dtype = torch.bfloat1
         return torch.softmax(out.float(), dim=1)
 
     return predict
+
+
+def make_predict_many_fn(model: nn.Module, compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """``predict_many(images (k, c, 1, s, s)) -> labels (k, c, s, s)`` uint8, one
+    forward per chunk of ``c`` slices, on the model's device."""
+    model.eval()
+
+    @torch.inference_mode()
+    def predict_many(images: torch.Tensor) -> torch.Tensor:
+        if model.training:
+            model.eval()
+        return torch.stack([model(chunk.to(compute_dtype)).argmax(dim=1).to(torch.uint8) for chunk in images])
+
+    return predict_many

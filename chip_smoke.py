@@ -38,9 +38,10 @@ runs K10. Phases:
    bf16; K11's dw with x and g in the layouts that one train-mode backward of
    the model at batch 2 hands over, recorded here), repeat-run bit-identity
    of K11's forward and dw and of K12's forward, dx and dw, and their times
-   beside the bound and the library call (K11's dw also by device time: a
-   CUDA graph of calls on copies of its inputs that pass twice the L2,
-   ``tools/device_time.py``);
+   beside the bound and the library call (K9 and K11's dw also by device
+   time, beside the library call's: a CUDA graph of calls on copies of its
+   inputs that pass twice the L2, ``tools/device_time.py``; K9's sum over its
+   three sites against its bound);
 3. slice parity: a seeded CENet-b2 (Synapse preset) on 2 slices at 224², fp32
    on the card (kernels routed) against fp32 on the CPU (twins), then bf16;
    3b. train-step parity: one fp32 forward/backward of the same model in train
@@ -54,8 +55,9 @@ runs K10. Phases:
    batch 8, each held against a float64 run of the step, and at batch 8 against
    the unswapped step;
 4. the volume path: ``VolumeInferencer`` + ``run_inference`` in bf16 on two
-   seeded synthetic CT cases (64 × 512 × 512, labels 0–8), with the kernel
-   launch counts of that run;
+   seeded synthetic CT cases (64 × 512 × 512, intensities in [0, 1], labels
+   0–8), with the kernel launch counts of that run, slices/s, and step-event
+   and back-zoom ms a chunk;
    4b. the split route's volume path: one bf16 chunk through ``make_predict_fn``
    on both routes, required equal to the bit (K5 launches K1's kernel), and
    one synthetic case through ``VolumeInferencer`` on both routes, with the
@@ -64,6 +66,16 @@ runs K10. Phases:
    only);
    4c. the same with K9, K11 and K12 swapped in (fp32 and bf16 chunks), and
    the bf16 chunk's forward timed with CUDA events beside the unswapped one;
+   4d. the CLI: ``cenet_tpu_torch.cli.main`` ``eval`` in-process on phase 4's
+   cases with a seeded CENet-b2's ``.pth`` and ``--is_savenii`` (``.npy.h5``
+   files where ``h5py`` is installed, else the cases in memory), its per-class
+   metrics read back from phase 4's: K1 and K2 launched as counted, its JSON
+   line equal to ``run_inference`` on the same weights, the NIfTI files read
+   back equal, HD95 with the native EDT within 1e-9 of scipy's; then every
+   transfer mode and the host zoom, serial and overlapped, on the same cases
+   (labels only): slices/s, step-event and back-zoom ms a chunk, float32
+   serial = overlapped to the bit, float16 and host zoom ≥ 99.9% agreement;
+   and on one HU-like integer case uint16 = float32 to the bit;
 5. where one chunk's time goes: the bf16 forward of 32 slices timed with CUDA
    events, and its device time by kernel from ``torch.profiler``, which must
    show K1's and K2's tensor-core kernels as often as the launch counts say
@@ -95,7 +107,8 @@ runs K10. Phases:
 8. the rotary path: ``MultiheadDiffAttn(use_rotary=True)`` at DSEB1's width,
    batch 8, with K10 for its interleaved rotary, against the plain module,
    K10 equal to the plain rotary to the bit, and a profile that shows K10's
-   kernel twice per forward and, for calls on the fp32 tables, alone.
+   kernel twice per forward and, for calls on the fp32 tables (profiled in a
+   fresh process, where the profiler keeps their records), alone.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``; the two before it
@@ -107,6 +120,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -114,6 +128,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -125,6 +140,7 @@ from cenet_tpu_torch.core.config import get_preset  # noqa: E402
 from cenet_tpu_torch.data import augment  # noqa: E402
 from cenet_tpu_torch.data.loader import Loader, device_put_fn  # noqa: E402
 from cenet_tpu_torch.data.synapse import SynapseDataset  # noqa: E402
+from cenet_tpu_torch.evaluate import volume as VOL  # noqa: E402
 from cenet_tpu_torch.evaluate.predict import make_predict_fn  # noqa: E402
 from cenet_tpu_torch.evaluate.volume import VolumeInferenceConfig, VolumeInferencer, run_inference  # noqa: E402
 from cenet_tpu_torch.models.cenet import build_model  # noqa: E402
@@ -1002,49 +1018,133 @@ def synthetic_case(seed, d=64, h=512, w=512):
     return {"image": image, "label": label, "case_name": f"synthetic{seed}"}
 
 
+def hu_case(seed):
+    """``synthetic_case`` with integer, HU-like intensities (about -200 to 700),
+    which a uint16 upload carries exactly (phase 4d's uint16 check only: the
+    Synapse preset normalises its input as if it lay in [0, 1])."""
+    case = synthetic_case(seed)
+    case["image"] = (np.rint(case["image"] * 1000.0) - 200.0).astype(np.float32)
+    return case
+
+
+class InMemoryVolumes:
+    """The ``volumes()`` of ``SynapseDataset``'s ``test_vol`` split over cases held
+    in memory, for a machine without ``h5py`` to write the ``.npy.h5`` files."""
+
+    def __init__(self, cases):
+        self.cases = cases
+
+    def volumes(self):
+        return iter(self.cases)
+
+
+class MetricMemo:
+    """The volume module's ``calculate_metric_percase``, remembered by the
+    bytes of its two masks: phase 4 computes every case's metrics through it,
+    and phase 4d's CLI run over the same cases reads them back (a mask pair
+    not seen before is computed and counted in ``misses``)."""
+
+    def __init__(self):
+        self.fn, self.seen, self.misses = VOL.calculate_metric_percase, {}, 0
+
+    def __call__(self, pred, gt):
+        key = (pred.shape, hashlib.sha1(np.packbits(pred)).digest(), hashlib.sha1(np.packbits(gt)).digest())
+        if key not in self.seen:
+            self.misses += 1
+            self.seen[key] = self.fn(pred, gt)
+        return self.seen[key]
+
+    @contextlib.contextmanager
+    def installed(self):
+        VOL.calculate_metric_percase = self
+        try:
+            yield self
+        finally:
+            VOL.calculate_metric_percase = self.fn
+
+
+def instrument(inf):
+    """Timers around ``inf``'s chunk step, its host back-zoom and
+    ``predict_volume``. The step's timer is a pair of CUDA events recorded on
+    the compute stream as the host enters and leaves the step: its span holds
+    the host's dispatch of the step (and a wait on the chunk's upload), so it
+    reads host-bound time, not the device's (phase 5 reads that). The others
+    are host clocks. ``read(rec)`` gives the per-chunk means and slices/s."""
+    rec = {"events": [], "zoom_s": 0.0, "predict_s": 0.0, "slices": 0}
+    labels_fn, back_zoom_fn, predict = inf._labels, inf._back_zoom_fn, inf.predict_volume
+
+    def labels(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = labels_fn(*args)
+        end.record()
+        rec["events"].append((start, end))
+        return out
+
+    def timed_back_zoom_fn(h, w):
+        fn = back_zoom_fn(h, w)
+
+        def back_zoom(p):
+            t0 = time.perf_counter()
+            out = fn(p)
+            rec["zoom_s"] += time.perf_counter() - t0
+            return out
+
+        return back_zoom
+
+    def predict_volume(image):
+        t0 = time.perf_counter()
+        out = predict(image)
+        rec["predict_s"] += time.perf_counter() - t0
+        rec["slices"] += image.shape[0]
+        return out
+
+    inf._labels, inf._back_zoom_fn, inf.predict_volume = labels, timed_back_zoom_fn, predict_volume
+    return rec
+
+
+def read(rec):
+    torch.cuda.synchronize()
+    n = len(rec["events"])
+    return {"slices_per_s": rec["slices"] / rec["predict_s"], "chunks": n,
+            "wall_ms_per_chunk": rec["predict_s"] / n * 1e3,
+            "step_event_ms_per_chunk": sum(s.elapsed_time(e) for s, e in rec["events"]) / n,
+            "back_zoom_ms_per_chunk": rec["zoom_s"] / n * 1e3}
+
+
 def phase_volume():
-    """The main path: bf16 volume inference with metrics; returns the launch counts."""
+    """The main path: bf16 volume inference with metrics on two synthetic
+    cases (intensities in [0, 1], as the Synapse preset's normalisation
+    expects) with the seeded CENet-b2 of phase 4d's checkpoint. Returns the
+    launch counts, and the cases with their labels, ``run_inference``'s
+    result and the metrics it computed, which phase 4d's CLI run must
+    reproduce."""
     cfg = get_preset("synapse")
     model = build_model(cfg, device=DEV, seed=0)
     inf = VolumeInferencer(make_predict_fn(model, torch.bfloat16),
                            VolumeInferenceConfig(img_size=224, chunk=CHUNK, num_classes=9), device=DEV)
     cases = [synthetic_case(1), synthetic_case(2)]
     inf.predict_volume(cases[0]["image"][:CHUNK])  # warm-up: cuDNN plans, matrices, kernel loads
-
-    # host clocks around the volume and around each chunk; both return host
-    # labels, so the device work inside has finished when the clock stops
-    spent = {"predict_volume": 0.0, "_predict_chunk": 0.0}
-
-    def timed(name):
-        fn = getattr(inf, name)
-
-        def run(*args):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            spent[name] += time.perf_counter() - t0
-            return out
-
-        setattr(inf, name, run)
-
-    timed("predict_volume")
-    timed("_predict_chunk")
+    rec = instrument(inf)
+    preds = {}
     K.reset_launches()
-    dice, hd95 = run_inference(inf, cases)
+    t0 = time.perf_counter()
+    with MetricMemo().installed() as memo:
+        dice, hd95 = run_inference(inf, cases, save_hook=lambda case, pred: preds.update({case["case_name"]: pred}))
+    run_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    slices = sum(c["image"].shape[0] for c in cases)
+    timing = read(rec)
     chunks = sum(-(-c["image"].shape[0] // CHUNK) for c in cases)
-    predict_s, chunk_s = spent["predict_volume"], spent["_predict_chunk"]
-    emit({"phase": "volume", "cases": len(cases), "slices": slices, "chunks": chunks,
-          "slices_per_s": slices / predict_s, "predict_s": predict_s,
-          # upload, device zoom, forward, argmax and copy back, per chunk
-          "chunk_ms": chunk_s / chunks * 1e3,
-          # padding, concatenation and the host order-0 back-zoom, per chunk
-          "host_ms": (predict_s - chunk_s) / chunks * 1e3,
-          "mean_dice": dice, "mean_hd95": hd95,
+    emit({"phase": "volume", "cases": len(cases), "slices": rec["slices"], **timing, "predict_s": rec["predict_s"],
+          "metrics_s": run_s - rec["predict_s"], "mean_dice": dice, "mean_hd95": hd95,
           "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     check(np.isfinite(dice) and np.isfinite(hd95) and 0.0 <= dice <= 1.0, f"metrics {dice}, {hd95}")
+    check(timing["chunks"] == chunks, f"volume: {timing['chunks']} chunk steps, expected {chunks}")
     check_launches(launches, VOLUME_PER_CHUNK["interleaved"], chunks, f"volume, {chunks} chunks")
-    return launches
+    del model
+    torch.cuda.empty_cache()
+    return launches, {"cases": cases, "preds": preds, "result": {"mean_dice": dice, "mean_hd95": hd95},
+                      "metrics": memo}
 
 
 @contextlib.contextmanager
@@ -1600,6 +1700,11 @@ def swap_site_rows(counts):
             row["ms"] = time_ms(lambda: RMS.rms_norm(x))
             row["plain_ms"] = time_ms(lambda: RMS.rms_norm_plain(x))
             row["library_ms"] = time_ms(lambda: f.rms_norm(x, (x.shape[-1],), None, 1e-5))
+            # device time: a CUDA graph of calls on copies of x that pass twice the L2
+            sets = rotated((x,))
+            row["device_ms"] = graph_ms(RMS.rms_norm, sets)
+            row["library_device_ms"] = graph_ms(lambda x: f.rms_norm(x, (x.shape[-1],), None, 1e-5), sets)
+            del sets
             row["ops_ms"], row["bytes_ms"] = elem_bound(3 * x.numel(), 2 * 2 * x.numel())
             yield row
         elif kind == "depthwise":
@@ -1741,6 +1846,13 @@ def phase_swap_kernels():
             row["device_roofline_share"] = row["bound_ms"] / row["device_ms"]
         emit({"phase": "swap_kernels", **{k: (list(v) if isinstance(v, tuple) else v) for k, v in row.items()}})
         rows.append(row)
+    # K9 over its sites by device time, against its bound: the share that says
+    # whether K9 keeps its design (at least half of the bound) or is redesigned
+    k9 = [r for r in rows if r["kernel"] == "rms_norm"]
+    k9_total = {k: sum(r[k] * r["calls_per_forward"] for r in k9)
+                for k in ("device_ms", "library_device_ms", "bound_ms", "ms")}
+    emit({"phase": "k9_device_time", "sites": len(k9), **k9_total,
+          "device_roofline_share": k9_total["bound_ms"] / k9_total["device_ms"]})
     errs = {}
     for row in rows:
         e = max(v for k, v in row.items() if k.endswith("bf16_err") or k.endswith("bf16_dx_err")
@@ -1823,6 +1935,157 @@ def phase_swapped_volume():
     del model
     torch.cuda.empty_cache()
     return case_launches
+
+
+# phase 4d's runs after the CLI's, labels only: (transfer dtype, host zoom,
+# chunk loop); the float32 loops go in turns, overlapped first
+CLI_MODES = [("float32", False, "overlapped"), ("float32", False, "serial"), ("float32", False, "serial"),
+             ("float32", False, "overlapped"), ("uint16", False, "overlapped"), ("uint16", False, "serial"),
+             ("float16", False, "overlapped"), ("float16", False, "serial"), ("uint8", False, "overlapped"),
+             ("uint8", False, "serial"), ("float32", True, "overlapped"), ("float32", True, "serial")]
+
+
+def run_mode(predict, mode, host_zoom, run, images):
+    """Labels of ``images`` through one transfer mode and chunk loop (the
+    serial loop through the engine's private ``_predict_chunked``), and the
+    run's timings and staging allocations (after the first image, at the end)."""
+    vcfg = VolumeInferenceConfig(img_size=224, chunk=CHUNK, num_classes=9, transfer_dtype=mode, host_zoom=host_zoom)
+    inf = VolumeInferencer(predict, vcfg, device=DEV)
+    if run == "serial":
+        inf.predict_volume = lambda image: inf._predict_chunked(image, inf._run_serial)
+    inf.predict_volume(images[0][:CHUNK])  # warm-up: the zoom matrices of this path
+    rec = instrument(inf)
+    got = [inf.predict_volume(images[0])]
+    first = inf.staging.allocations
+    got += [inf.predict_volume(image) for image in images[1:]]
+    return got, {**read(rec), "staging_allocations": [first, inf.staging.allocations]}
+
+
+def agreement(got, want) -> float:
+    return float(np.mean([(g == w).mean() for g, w in zip(got, want)]))
+
+
+def phase_cli_eval(volume):
+    """4d: ``python -m cenet_tpu_torch.cli.main eval`` driven in-process on the
+    card over phase 4's two synthetic 64 × 512 × 512 cases (``.npy.h5`` files
+    when ``h5py`` is installed, else an in-memory ``volumes()``), with the
+    seeded CENet-b2 of phase 4 saved as a ``.pth`` and ``--is_savenii``: K1
+    and K2 launched as ``VOLUME_PER_CHUNK`` counts, the printed mean dice in
+    [0, 1] and HD95 finite, both equal to phase 4's ``run_inference`` on the
+    same weights, the NIfTI files read back equal to phase 4's labels and the
+    cases, and HD95 with the native EDT within 1e-9 of scipy's on one class of
+    one case. The CLI's per-class metrics are phase 4's (``MetricMemo``: every
+    mask pair it asks for was computed there), so the metrics run once. Then
+    the same cases through each transfer mode, serial and overlapped, on the
+    checkpoint loaded again (labels only): float32 overlapped equal to phase
+    4's labels, float32 serial and overlapped equal to the bit, float16 and
+    the host zoom agreeing with float32 on ≥ 99.9% of voxels (uint16 and
+    uint8 printed: their codes are not the intensities on [0, 1] volumes), the
+    pinned staging buffers made in the first case only; and one HU-like case
+    (``hu_case``), where uint16 carries the intensities, uint16 equal to
+    float32 to the bit on both loops. Slices/s, step-event ms and back-zoom ms
+    a chunk for each run. Returns the CLI run's launch counts."""
+    import io
+
+    from scipy import ndimage
+
+    from cenet_tpu_torch.cli import main as cli
+    from cenet_tpu_torch.core.checkpoint import load_checkpoint
+    from cenet_tpu_torch.evaluate import metrics as MET
+    from cenet_tpu_torch.evaluate.nifti import read_nifti
+
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    cfg = get_preset("synapse")
+    cases, preds, want, memo = volume["cases"], volume["preds"], volume["result"], volume["metrics"]
+    chunks = sum(-(-c["image"].shape[0] // CHUNK) for c in cases)
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "cenet_b2.pth")
+        torch.save(build_model(cfg, device=DEV, seed=0).state_dict(), pth)  # phase 4's weights
+        test_set = InMemoryVolumes(cases)
+        if h5py is not None:
+            for c in cases:
+                with h5py.File(os.path.join(tmp, f"{c['case_name']}.npy.h5"), "w") as f:
+                    f["image"], f["label"] = c["image"], c["label"]
+            with open(os.path.join(tmp, "test_vol.txt"), "w") as f:
+                f.write("".join(f"{c['case_name']}\n" for c in cases))
+            test_set = None
+        argv = ["eval", "--preset", "synapse", "--checkpoint", pth, "--root_path", tmp, "--list_dir", tmp,
+                "--output_dir", os.path.join(tmp, "out"), "--is_savenii"]
+        out = io.StringIO()
+        memo.misses = 0
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), memo.installed():
+            result = cli.main(argv, test_set=test_set)
+        cli_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        printed = json.loads(out.getvalue().strip().splitlines()[-1])
+        snap = cli.snapshot_path(cli.make_config(cli.build_argparser().parse_args(argv)))
+        nifti_equal = all(
+            np.array_equal(read_nifti(os.path.join(snap, "predictions", f"{c['case_name']}_{kind}.nii.gz")), ref)
+            for c in cases for kind, ref in (("pred", preds[c["case_name"]]), ("img", c["image"]),
+                                             ("gt", c["label"])))
+        model = load_checkpoint(build_model(cfg, device=DEV, seed=1), pth)
+    # HD95 of one class of the first case, with the native EDT and with scipy's
+    case, pred = cases[0], preds[cases[0]["case_name"]]
+    cls = next((k for k in range(1, 9) if (pred == k).any() and (case["label"] == k).any()), None)
+    a, b = (pred == cls, case["label"] == cls) if cls else (case["label"] == 1, np.roll(case["label"] == 1, 3, 2))
+    hd_native = MET.hd95(a, b)
+    native_edt, MET.edt = MET.edt, ndimage.distance_transform_edt
+    try:
+        hd_scipy = MET.hd95(a, b)
+    finally:
+        MET.edt = native_edt
+    emit({"phase": "cli_eval", "h5py": h5py is not None, "seconds": cli_s, "printed": printed,
+          "run_inference": want, "metrics_from_phase_4": len(memo.seen) - memo.misses, "metric_misses": memo.misses,
+          "launches": launches, "chunks": chunks, "nifti_read_back_equal": nifti_equal,
+          "hd95_class": cls, "hd95_native": hd_native, "hd95_scipy": hd_scipy,
+          "log": out.getvalue().strip().splitlines()[-3:-1]})
+    check_launches(launches, VOLUME_PER_CHUNK["interleaved"], chunks, f"cli eval, {chunks} chunks")
+    check(printed == result and 0.0 <= printed["mean_dice"] <= 1.0 and np.isfinite(printed["mean_hd95"]),
+          f"cli eval printed {printed}")
+    check(printed == want, f"cli eval {printed} is not run_inference's {want} on the same weights")
+    check(memo.misses == 0, f"cli eval: {memo.misses} mask pairs that phase 4 did not see")
+    check(nifti_equal, "cli eval: the NIfTI files do not read back equal")
+    check(abs(hd_native - hd_scipy) <= 1e-9, f"HD95 native {hd_native} against scipy {hd_scipy}")
+
+    predict = make_predict_fn(model, torch.bfloat16)
+    images = [c["image"] for c in cases]
+    labels = {}
+    for mode, host_zoom, run in CLI_MODES:
+        name = f"{mode}{' host_zoom' if host_zoom else ''} {run}"
+        got, row = run_mode(predict, mode, host_zoom, run, images)
+        labels.setdefault(name, got)
+        row = {"mode": name, **row, "label_agree_vs_float32": agreement(got, labels["float32 overlapped"])}
+        emit({"phase": "cli_eval_modes", **row})
+        check(row["staging_allocations"][0] == row["staging_allocations"][1],
+              f"{name}: staging buffers made after the first case")
+        check(all(np.array_equal(g, l) for g, l in zip(got, labels[name])), f"{name}: two runs differ")
+    ref = labels["float32 overlapped"]
+    check(all(np.array_equal(p, preds[c["case_name"]]) for p, c in zip(ref, cases)),
+          "float32 overlapped labels are not phase 4's")
+    for name, limit in (("float32 serial", 1.0), ("float16 overlapped", 0.999),
+                        ("float32 host_zoom overlapped", 0.999)):
+        agree = agreement(labels[name], ref)
+        exact = all(np.array_equal(g, w) for g, w in zip(labels[name], ref))
+        check(exact if limit == 1.0 else agree >= limit, f"{name}: labels agree with float32's on {agree}")
+    for mode in ("uint16", "float16", "uint8", "float32 host_zoom"):
+        check(all(np.array_equal(g, w) for g, w in zip(labels[f"{mode} serial"], labels[f"{mode} overlapped"])),
+              f"{mode}: serial and overlapped labels differ")
+    hu = [hu_case(3)["image"]]
+    hu_labels = {}
+    for mode, run in (("float32", "overlapped"), ("uint16", "overlapped"), ("uint16", "serial")):
+        hu_labels[f"{mode} {run}"] = run_mode(predict, mode, False, run, hu)[0]
+    hu_exact = {name: all(np.array_equal(g, w) for g, w in zip(got, hu_labels["float32 overlapped"]))
+                for name, got in hu_labels.items()}
+    emit({"phase": "cli_eval_uint16_hu", "slices": int(hu[0].shape[0]), "equal_to_float32": hu_exact})
+    check(all(hu_exact.values()), f"uint16 on integer volumes: labels not float32's to the bit ({hu_exact})")
+    del model, predict
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_swapped_train_parity(card, x2, y2, w_loss, w_grads, names, live):
@@ -1937,6 +2200,49 @@ def phase_swapped_train(trainer, images, labels, dw_layouts, steps=10):
     return launched
 
 
+# K10 calls profiled in a fresh process (``k10_calls_profiled``); its last line is
+# the CUDA kernels of the first session that ``alone`` accepts, or of the last
+K10_CALLS_PROFILED = r"""
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from cenet_tpu_torch.ops import rotary as ROT
+saved = torch.load(sys.argv[1])
+qd, cos, sin = (saved[k].cuda() for k in ("qd", "cos", "sin"))
+calls, tries = int(sys.argv[2]), int(sys.argv[3])
+ROT.apply_rotary_emb_kernel(qd, cos, sin)  # load the library outside the sessions
+for _ in range(tries):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ROT.apply_rotary_emb_kernel(qd, cos, sin)
+        torch.cuda.synchronize()
+    kernels = [[e.key, e.count] for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if 1 <= sum(n for _, n in kernels) <= calls and all("rotary_vec_kernel<" in k for k, _ in kernels):
+        break
+print(json.dumps(kernels))
+"""
+
+
+def k10_calls_profiled(qd, cos, sin, calls, tries=3):
+    """The CUDA kernels (key, count) of ``calls`` K10 calls on ``qd`` with the
+    tables ``cos``, ``sin``, profiled in a fresh process on the libraries built
+    here, up to ``tries`` sessions while they are not K10's kernel alone. In this long
+    process such a session, which holds only the ctypes-launched K10 kernels,
+    came back empty in all three tries of two whole runs on an H100, while
+    the forward profile just before it held K10 twice; in a fresh process it
+    held all four launches (PERF.md §7)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "k10_inputs.pt")
+        torch.save({"qd": qd.cpu(), "cos": cos.cpu(), "sin": sin.cpu()}, path)
+        out = subprocess.run([sys.executable, "-c", K10_CALLS_PROFILED, path, str(calls), str(tries)],
+                             cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                             timeout=600)
+    check(out.returncode == 0, f"the K10 profile process failed:\n{out.stderr[-3000:]}")
+    kernels = [types.SimpleNamespace(key=k, count=n) for k, n in json.loads(out.stdout.strip().splitlines()[-1])]
+    return kernels
+
+
 def phase_rotary(n=3136):
     """``MultiheadDiffAttn(use_rotary=True)`` at DSEB1's width (128 channels, 8
     heads of head dim 8, 3136 tokens), batch 8, in inference, with rel_pos =
@@ -2006,7 +2312,7 @@ def phase_rotary(n=3136):
     with torch.inference_mode(), swapped_ops():
         forward = profiled_kernels(lambda: module(xd, (cos, sin)),
                                    lambda ks: all(by_design(ks)[r] == want[r] for r in KERNEL_DESIGNS))
-        call = profiled_kernels(lambda: [ROT.apply_rotary_emb_kernel(qd, cos, sin) for _ in range(calls)], alone)
+    call = k10_calls_profiled(qd, cos, sin, calls)
     row.update({"bf16_kernel_designs": by_design(forward), "bf16_call_kernels": {e.key[:80]: e.count for e in call}})
     check_designs(kernel_designs(forward), ROTARY_PER_FORWARD, "rotary bf16 forward profile")
     check(alone(call), f"{calls} K10 calls on fp32 tables launched {row['bf16_call_kernels']}, expected its kernel "
@@ -2050,8 +2356,10 @@ def main():
     phase_slice_parity()
     live, _ = phase_train_parity()
     phase_split_train_parity(live)
-    launches.update({"volume": phase_volume(), "volume-split": phase_split_volume(),
-                     "volume-swapped": phase_swapped_volume()})
+    launches["volume"], volume = phase_volume()
+    launches.update({"volume-split": phase_split_volume(), "volume-swapped": phase_swapped_volume(),
+                     "cli-eval": phase_cli_eval(volume)})
+    del volume
     phase_profile()
     launches["train"], trainer, images, labels = phase_train()
     phase_train_profile(trainer, images, labels)

@@ -26,15 +26,28 @@ every dilation on every route of its layout rule and at the train step's size
 classes, with their repeat-run bit-identity; K10 equal to its twin to the bit
 at head dims 6–128 on fp32 tables and on tables in x's dtype.
 
+The volume engine's card path: the overlapped chunk pipeline (pinned staging,
+side-stream uploads) gives the serial loop's labels to the bit in bf16 on a
+CENet-b0 (its DSEB and Nonlocal sites launch K1 and K2), a uint16 upload
+decodes to the integer volume exactly on both paths, and the pinned buffers
+are made in the first case only.
+
 Marked ``cuda``; each test skips without a CUDA device. This file imports no
 JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+from cenet_tpu_torch.core.config import get_preset
+from cenet_tpu_torch.evaluate.predict import make_predict_fn
+from cenet_tpu_torch.evaluate.volume import VolumeInferenceConfig, VolumeInferencer
+from cenet_tpu_torch.models.cenet import build_model
 from cenet_tpu_torch.ops import attention_kernels as K
 from cenet_tpu_torch.ops import depthwise as DW
 from cenet_tpu_torch.ops import rms_norm as RN
@@ -888,3 +901,54 @@ def test_cuda_rotary_bit_equal_every_head_dim(cuda, dtype):
             torch.cuda.synchronize()
             for t, out in got.items():
                 assert out.is_contiguous() and torch.equal(out, want), (d, view, t, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_volume_overlap_equals_serial_in_bf16(cuda):
+    cfg = get_preset("synapse")
+    model = build_model(cfg.replace(model=dataclasses.replace(cfg.model, encoder="pvt_v2_b0")), device=cuda, seed=0)
+    predict = make_predict_fn(model, torch.bfloat16)
+    image = np.random.default_rng(0).integers(-200, 700, (40, 300, 260)).astype(np.float32)
+    labels = {}
+    for run in ("serial", "overlapped"):
+        inf = VolumeInferencer(predict, VolumeInferenceConfig(img_size=224, chunk=16, num_classes=9), device=cuda)
+        K.reset_launches()
+        labels[run] = inf._predict_chunked(image, getattr(inf, f"_run_{run}"))
+        assert K.LAUNCHES["diff_attention_interleaved_fwd"] > 0 and K.LAUNCHES["attention_fwd"] > 0
+    assert labels["overlapped"].shape == image.shape
+    np.testing.assert_array_equal(labels["overlapped"], labels["serial"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", ["serial", "overlapped"])
+def test_cuda_volume_uint16_decode_is_exact(cuda, run):
+    """Codes up to 65535 (past int16's range) decode on the card to the integer volume."""
+    image = np.random.default_rng(1).integers(-30000, 35536, (5, 48, 48)).astype(np.float32)
+    image[0, 0, :2] = -30000, 35535  # the full uint16 span
+    seen = []
+
+    def predict(x):
+        seen.append(x[:, 0].cpu())
+        return torch.zeros(x.shape[0], 2, *x.shape[2:], device=x.device)
+
+    vcfg = VolumeInferenceConfig(img_size=48, chunk=4, normalize=False, num_classes=2, transfer_dtype="uint16")
+    inf = VolumeInferencer(predict, vcfg, device=cuda)
+    enc, scale, offset = inf._encode(image)
+    assert enc.dtype == np.uint16 and scale == 1.0 and int(enc.max()) == 65535
+    inf._predict_chunked(image, getattr(inf, f"_run_{run}"))
+    np.testing.assert_array_equal(torch.cat(seen)[:5].numpy(), image)
+
+
+@pytest.mark.cuda
+def test_cuda_volume_staging_buffers_are_reused(cuda):
+    vcfg = VolumeInferenceConfig(img_size=32, chunk=4, normalize=False, num_classes=2)
+    inf = VolumeInferencer(lambda x: torch.cat([x, -x], dim=1), vcfg, device=cuda)
+    rng = np.random.default_rng(2)
+    inf.predict_volume(rng.standard_normal((10, 40, 40)).astype(np.float32))
+    assert inf.staging.allocations == 2 + 3  # two upload buffers, one output buffer per chunk
+    for _ in range(2):
+        inf.predict_volume(rng.standard_normal((10, 40, 40)).astype(np.float32))
+    assert inf.staging.allocations == 5
+    bufs = [b[0] for ring in inf.staging._inputs.values() for b in ring]
+    bufs += [b for out in inf.staging._outputs.values() for b in out]
+    assert len(bufs) == 5 and all(b.is_pinned() for b in bufs)

@@ -45,6 +45,21 @@ def test_op_modules_import_no_jax(module):
     assert out.stdout.strip() == "[]"
 
 
+EVAL_MODULES = ["cli.main", "core.checkpoint", "core.logging_utils", "evaluate.nifti", "evaluate.visualize",
+                "evaluate.volume", "native"]
+
+
+def test_eval_entry_modules_import_no_jax():
+    """The ``cli eval`` path's modules, imported alone in one process, import
+    neither JAX nor the JAX package (nor matplotlib, which ``--save_figs``
+    imports at its call)."""
+    code = ("import sys; " + "; ".join(f"import cenet_tpu_torch.{m}" for m in EVAL_MODULES) + "; print(sorted(m "
+            "for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cenet_tpu', 'matplotlib')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
 def test_cpu_tensors_never_touch_the_build_in_the_new_ops(monkeypatch):
     """K9–K12's wrappers and Functions take their twins for CPU tensors."""
     from cenet_tpu_torch.ops import depthwise, rms_norm, rotary, smallc_conv
