@@ -1,27 +1,35 @@
-"""The port's CLI: ``train`` and ``eval`` on Synapse.
+"""The port's CLI: ``train`` and ``eval`` for all four workloads.
 
     python -m cenet_tpu_torch.cli.main train --preset synapse --root_path .../Synapse/train_npz \\
         --list_dir .../lists_Synapse [--resume] [--throughput] [--device cpu]
     python -m cenet_tpu_torch.cli.main eval --preset synapse [--checkpoint model.pth|snapshot_dir] \\
         --root_path .../Synapse/test_vol_h5 --list_dir .../lists_Synapse [--device cpu]
+    python -m cenet_tpu_torch.cli.main train|eval --preset acdc --root_path .../ACDC --list_dir .../lists_ACDC
+    python -m cenet_tpu_torch.cli.main train|eval --preset ham10000|ph2 --root_path .../PH2
 
 Mirrors ``cenet_tpu/cli/main.py``: the same arguments (``build_argparser``,
 ``make_config``, ``snapshot_path`` are copies) plus ``--device``, the device
 the model runs on (the card by default, the CPU only when asked).
 
-``train`` is the JAX ``run_train`` with its Synapse branch: the epoch loop with
-``steps_per_call`` batches stacked into ``Trainer.multi_step`` and the
-epoch-end flush, logs and scalars, the snapshot policy (from epoch T/2 every
-``eval_interval`` epochs an ``epochN`` tag and a volume eval; a rotating step
-checkpoint every epoch; ``final``), the metric curves, ``--resume``,
-``--pretrained_pth`` and ``--throughput``, whose JSON is its last line.
-``eval`` loads a ``.pth`` or JAX-format ``.npz`` checkpoint, or a snapshot
-directory's ``best``/``final``/last epoch/latest step
-(:mod:`cenet_tpu_torch.core.checkpoint`), runs :class:`VolumeInferencer` and
-:func:`run_inference` over the ``test_vol`` list, optionally writes per-case
-figures (``--save_figs``) and NIfTI files (``--is_savenii``, spacing
-(1, 1, z_spacing)), and prints ``{"mean_dice": …, "mean_hd95": …}`` as its
-last line. What is not ported yet exits with the ROADMAP item that ports it.
+``train`` is the JAX ``run_train``: the epoch loop with ``steps_per_call``
+batches stacked into ``Trainer.multi_step`` and the epoch-end flush, logs and
+scalars, a rotating step checkpoint every epoch, ``final``, the metric curves,
+``--resume``, ``--pretrained_pth`` and ``--throughput``, whose JSON is its
+last line; and each dataset's eval policy after an epoch: Synapse from epoch
+T/2 every ``eval_interval`` epochs an ``epochN`` tag and a volume eval; ACDC
+a per-slice val every epoch and, when it improves, a volume test, and
+``best`` when that improves; HAM10000/PH2 the same cascade with the skin val
+and test. ``eval`` loads a ``.pth`` or JAX-format ``.npz`` checkpoint, or a
+snapshot directory's ``best``/``final``/last epoch/latest step
+(:mod:`cenet_tpu_torch.core.checkpoint`). Synapse and ACDC run
+:class:`VolumeInferencer` and :func:`run_inference` over the test volumes
+(ACDC unnormalised, with the full metrics), optionally with per-case figures
+(``--save_figs``) and NIfTI files (``--is_savenii``, spacing (1, 1,
+z_spacing)), and print ``{"mean_dice": …, "mean_hd95": …}``; the skin presets
+run ``skin_test`` over the test split, optionally with contour overlays
+(``--save_figs``), and print ``{"dice": …, "acc": …, "iou": …}``, as the last
+line. What is not ported yet (``bench``, ``--mesh``/``--coordinator``,
+``--model_stats``) exits with the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -39,9 +47,6 @@ import numpy as np
 # what exits, and the ROADMAP queue 1 item that ports it
 NOT_PORTED = {
     "bench": "the bench mode is not ported yet (ROADMAP queue 1 items 1 and 5)",
-    "acdc": "the acdc preset's data and eval are not ported yet (ROADMAP queue 1 item 8)",
-    "ham10000": "the skin presets' data and eval are not ported yet (ROADMAP queue 1 item 8)",
-    "ph2": "the skin presets' data and eval are not ported yet (ROADMAP queue 1 item 8)",
     "mesh": "--mesh and --coordinator (multi-device and multi-host runs) are not ported yet (ROADMAP queue 1 item 11)",
     "model_stats": "--model_stats (FLOPs and bytes at startup) is not ported yet (ROADMAP queue 1 item 12)",
 }
@@ -83,7 +88,8 @@ def build_argparser():
     p.add_argument("--skip_use_command", default=None)
     p.add_argument("--is_savenii", action="store_true", help="export predictions as .nii.gz (eval)")
     p.add_argument("--save_figs", action="store_true",
-                   help="per-case image/GT/pred figures during eval (utils_synapse.py:86)")
+                   help="per-case image/GT/pred figures during eval (utils_synapse.py:86) "
+                        "/ skin contour overlays (utils_skin.py:155-157)")
     p.add_argument("--model_stats", action="store_true",
                    help="FLOPs/bytes at startup (train only, not ported yet); param count is always printed")
     p.add_argument("--z_spacing", type=int, default=None)
@@ -196,34 +202,140 @@ def _logging(snap: str, name: str):
             h.close()
 
 
-def _test_set(cfg, test_set):
-    """``test_set`` (anything with ``volumes()`` yielding {image, label,
-    case_name}), else the ``test_vol`` list under ``cfg.data``."""
-    if test_set is not None:
-        return test_set
-    from cenet_tpu_torch.data.synapse import SynapseDataset
-
+def _test_set(cfg, test_set=None):
+    """The test split of ``cfg.data.dataset``: Synapse's ``test_vol`` volumes
+    (or ``test_set``, anything with ``volumes()`` yielding {image, label,
+    case_name}, which replaces them), ACDC's test volumes, or the skin test
+    split."""
     d = cfg.data
-    return SynapseDataset(d.root_path, d.list_dir, "test_vol", d.img_size, preload=False)
+    if test_set is not None:
+        if d.dataset != "synapse":
+            raise ValueError(f"test_set replaces Synapse's test_vol list only, not the {d.dataset} test split")
+        return test_set
+    if d.dataset == "synapse":
+        from cenet_tpu_torch.data.synapse import SynapseDataset
+
+        return SynapseDataset(d.root_path, d.list_dir, "test_vol", d.img_size, preload=False)
+    if d.dataset == "acdc":
+        from cenet_tpu_torch.data.acdc import ACDCDataset
+
+        return ACDCDataset(d.root_path, d.list_dir, "test", d.img_size, preload=False)
+    from cenet_tpu_torch.data.skin import SkinDataset
+
+    return SkinDataset(d.dataset, d.root_path, "test", d.img_size)
+
+
+def _datasets(cfg, test_set=None):
+    """(train, val, test) splits of ``cfg.data.dataset`` (``cenet_tpu/cli/main.py::_datasets``;
+    Synapse has no val split); ``test_set`` as in :func:`_test_set`."""
+    d = cfg.data
+    if d.dataset == "synapse":
+        from cenet_tpu_torch.data.synapse import SynapseDataset
+
+        train, val = SynapseDataset(d.root_path, d.list_dir, "train", d.img_size), None
+    elif d.dataset == "acdc":
+        from cenet_tpu_torch.data.acdc import ACDCDataset
+
+        train = ACDCDataset(d.root_path, d.list_dir, "train", d.img_size)
+        val = ACDCDataset(d.root_path, d.list_dir, "valid", d.img_size)
+    else:
+        from cenet_tpu_torch.data.skin import SkinDataset
+
+        train = SkinDataset(d.dataset, d.root_path, "train", d.img_size)
+        val = SkinDataset(d.dataset, d.root_path, "val", d.img_size)
+    return train, val, _test_set(cfg, test_set)
 
 
 def _volume_eval(predict, te_ds, cfg, device, log=None, save_hook=None):
-    """Synapse volume evaluation (``cenet_tpu/cli/main.py::_volume_eval``):
-    (mean dice, mean HD95) of ``predict`` over ``te_ds.volumes()``."""
+    """Volume evaluation (``cenet_tpu/cli/main.py::_volume_eval``): (mean dice,
+    mean HD95) of ``predict`` over ``te_ds.volumes()``; Synapse normalises its
+    input, ACDC does not and computes the full metrics (dice, HD95, Jaccard,
+    ASD), as the JAX CLI sets them by dataset."""
     from cenet_tpu_torch.evaluate.volume import VolumeInferenceConfig, VolumeInferencer, run_inference
 
+    dataset = cfg.data.dataset
     inf = VolumeInferencer(
         predict,
-        VolumeInferenceConfig(img_size=cfg.data.img_size, normalize=True, num_classes=cfg.model.num_classes),
+        VolumeInferenceConfig(img_size=cfg.data.img_size, normalize=dataset == "synapse",
+                              num_classes=cfg.model.num_classes),
         device=device,
     )
-    return run_inference(inf, list(te_ds.volumes()), log=log, save_hook=save_hook)
+    return run_inference(inf, list(te_ds.volumes()), full_metrics=dataset == "acdc", log=log, save_hook=save_hook)
+
+
+def _acdc_val(predict, vl_ds, cfg, device) -> float:
+    """ACDC per-slice val dice at the original resolution
+    (``metrics_eval.val_single_volume``): each slice through
+    :class:`VolumeInferencer` in chunks of ``batch_size``, unnormalised; the
+    mean over slices of the mean dice of classes 1..K-1."""
+    from cenet_tpu_torch.evaluate.metrics import dice_coefficient
+    from cenet_tpu_torch.evaluate.volume import VolumeInferenceConfig, VolumeInferencer
+
+    num_classes = cfg.model.num_classes
+    inf = VolumeInferencer(
+        predict,
+        VolumeInferenceConfig(img_size=cfg.data.img_size, chunk=cfg.train.batch_size, normalize=False,
+                              num_classes=num_classes),
+        device=device,
+    )
+    dices = []
+    for i in range(len(vl_ds)):
+        s = vl_ds.get_eval(i)
+        image, label = s["image"], s["label"]
+        if image.ndim == 2:
+            image, label = image[None], label[None]
+        pred = inf.predict_volume(image)
+        dices.append(float(np.mean([dice_coefficient(pred == c, label == c) for c in range(1, num_classes)])))
+    return float(np.mean(dices)) if dices else 0.0
+
+
+def _skin_batches(ds, bs, device):
+    """The skin split ``ds`` in order, in batches of ``bs``: {``image`` (B, 3, H,
+    W) fp32 on ``device``, ``label`` (B, H, W) numpy}; one ``get_eval`` per index."""
+    import torch
+
+    n = len(ds)
+    for i in range(0, n, bs):
+        samples = [ds.get_eval(j) for j in range(i, min(i + bs, n))]
+        image = np.ascontiguousarray(np.stack([s["image"] for s in samples]).transpose(0, 3, 1, 2))
+        yield {"image": torch.from_numpy(image).to(device), "label": np.stack([s["label"] for s in samples])}
+
+
+def _quick_val(predict, vl_ds, cfg, device) -> float:
+    """Skin val: per-batch dice on the argmax (utils_skin.py:97-113)."""
+    from cenet_tpu_torch.evaluate.skin import skin_val
+
+    return skin_val(predict, _skin_batches(vl_ds, cfg.train.batch_size, device))
+
+
+def _overlay_hook(args, snap: str, log: logging.Logger):
+    """``skin_test``'s ``save_hook`` of ``--save_figs`` (GT green, prediction
+    red, one PNG per test image, reference utils_skin.py:155-157), or None.
+    Through the hook each batch is forwarded once."""
+    if not args.save_figs:
+        return None
+    import itertools
+
+    from cenet_tpu_torch.evaluate.visualize import skin_overlay
+
+    fig_dir = os.path.join(snap, "figures")
+    counter = itertools.count()
+
+    def save_hook(batch, pred):
+        images = batch["image"].cpu().numpy()
+        for j in range(pred.shape[0]):
+            skin_overlay(images[j], np.asarray(batch["label"][j]), pred[j],
+                         os.path.join(fig_dir, f"te_{next(counter)}.png"))
+
+    log.info("saving overlays to %s", fig_dir)
+    return save_hook
 
 
 def run_train(cfg, args, test_set=None):
-    """Synapse training on ``args.device`` (``cenet_tpu/cli/main.py::run_train``,
-    its Synapse branch); returns the :class:`Trainer`. ``test_set`` replaces
-    the ``test_vol`` list of the snapshot evals, as in :func:`run_eval`."""
+    """Training on ``args.device`` (``cenet_tpu/cli/main.py::run_train``) with
+    the eval and checkpoint policy of ``cfg.data.dataset``; returns the
+    :class:`Trainer`. ``test_set`` replaces Synapse's ``test_vol`` list of
+    the snapshot evals, as in :func:`run_eval`."""
     import torch
 
     from cenet_tpu_torch.core.checkpoint import CheckpointManager, load_pretrained_encoder
@@ -231,7 +343,7 @@ def run_train(cfg, args, test_set=None):
     from cenet_tpu_torch.core.logging_utils import ScalarWriter, Throughput
     from cenet_tpu_torch.core.stats import count_params
     from cenet_tpu_torch.data.loader import Loader, device_put_fn
-    from cenet_tpu_torch.data.synapse import SynapseDataset
+    from cenet_tpu_torch.evaluate.skin import skin_test
     from cenet_tpu_torch.evaluate.visualize import plot_metric_curves
     from cenet_tpu_torch.train.trainer import Trainer
 
@@ -241,8 +353,7 @@ def run_train(cfg, args, test_set=None):
         log.info("config: %s", cfg)
         writer = ScalarWriter(os.path.join(snap, "tb"))
         d = cfg.data
-        tr_ds = SynapseDataset(d.root_path, d.list_dir, "train", d.img_size)
-        te_ds = _test_set(cfg, test_set)
+        tr_ds, vl_ds, te_ds = _datasets(cfg, test_set)
         bs = cfg.train.batch_size
         iters_per_epoch = len(tr_ds) // bs
         max_iterations = cfg.train.max_epochs * iters_per_epoch
@@ -266,6 +377,7 @@ def run_train(cfg, args, test_set=None):
                         prefetch=spc_cfg + 2, put_fn=device_put_fn(device))
         ckpt = CheckpointManager(snap, keep=cfg.train.ckpt_keep)
         meter = Throughput()
+        best_val = best_test = 0.0
         it = 0
         start_epoch = 0
         if args.resume and ckpt.has_any():
@@ -335,15 +447,46 @@ def run_train(cfg, args, test_set=None):
                     except Exception as e:  # noqa: BLE001 — the writer's failure alone; training goes on
                         log.warning("triptych not written at iter %d (%s: %s)", it, type(e).__name__, e)
             flush_pending()
-            # the Synapse snapshot policy (reference main_synapse.py:297-309)
-            if (epoch + 1) >= cfg.train.max_epochs // 2 and (epoch + 1) % cfg.train.eval_interval == 0:
-                ckpt.save(it, trainer, tag=f"epoch{epoch + 1}")
-                dice, hd = _volume_eval(trainer.eval_step, te_ds, cfg, device)
-                writer.scalar("info/test_dice", dice, it)
-                writer.scalar("info/test_hd95", hd, it)
-                curve_dice.append(dice)
-                curve_hd.append(hd)
-                log.info("epoch %d snapshot: test dice %.4f hd95 %.4f", epoch + 1, dice, hd)
+            # eval / checkpoint policies (reference: main_synapse.py:297-309,
+            # main_acdc.py:270-283, main_skin.py:261-270)
+            if d.dataset == "synapse":
+                if (epoch + 1) >= cfg.train.max_epochs // 2 and (epoch + 1) % cfg.train.eval_interval == 0:
+                    ckpt.save(it, trainer, tag=f"epoch{epoch + 1}")
+                    dice, hd = _volume_eval(trainer.eval_step, te_ds, cfg, device)
+                    writer.scalar("info/test_dice", dice, it)
+                    writer.scalar("info/test_hd95", hd, it)
+                    curve_dice.append(dice)
+                    curve_hd.append(hd)
+                    log.info("epoch %d snapshot: test dice %.4f hd95 %.4f", epoch + 1, dice, hd)
+            elif d.dataset == "acdc":
+                val_d = _acdc_val(trainer.eval_step, vl_ds, cfg, device)
+                writer.scalar("info/val_dice", val_d, it)
+                curve_dice.append(val_d)
+                curve_hd.append(curve_hd[-1] if curve_hd else 0.0)
+                log.info("epoch %d val dice %.4f", epoch, val_d)
+                if val_d > best_val:
+                    best_val = val_d
+                    dice, hd = _volume_eval(trainer.eval_step, te_ds, cfg, device)
+                    curve_hd[-1] = hd
+                    log.info("epoch %d test dice %.4f hd95 %.4f", epoch, dice, hd)
+                    if dice > best_test:
+                        best_test = dice
+                        ckpt.save_best(trainer, {"val_dice": val_d, "test_dice": dice, "epoch": epoch})
+                        log.info("new best test dice %.4f (saved best)", dice)
+            else:
+                val_d = _quick_val(trainer.eval_step, vl_ds, cfg, device)
+                writer.scalar("info/val_dice", val_d, it)
+                curve_dice.append(val_d)
+                curve_hd.append(0.0)
+                log.info("epoch %d val dice %.4f", epoch, val_d)
+                if val_d > best_val:
+                    best_val = val_d
+                    t_dice, t_acc, t_iou = skin_test(trainer.eval_step, _skin_batches(te_ds, bs, device))
+                    log.info("epoch %d test dice %.4f acc %.4f iou %.4f", epoch, t_dice, t_acc, t_iou)
+                    if t_dice > best_test:
+                        best_test = t_dice
+                        ckpt.save_best(trainer, {"val_dice": val_d, "test_dice": t_dice, "epoch": epoch})
+                        log.info("new best test dice %.4f (saved best)", t_dice)
             # rotating step checkpoint (keep=N) so --resume restores the latest epoch
             # boundary with optimizer momentum intact
             ckpt.save(it, trainer)
@@ -360,16 +503,18 @@ def run_train(cfg, args, test_set=None):
 
 
 def run_eval(cfg, args, test_set=None) -> dict:
-    """Synapse volume evaluation of ``args.checkpoint`` (a file, or a snapshot
-    directory; without it the configuration's own snapshot) on ``args.device``;
-    prints and returns ``{"mean_dice", "mean_hd95"}``. ``test_set`` (anything
-    with ``volumes()`` yielding {image, label, case_name}) replaces the
-    ``test_vol`` list under ``cfg.data``."""
+    """Evaluation of ``args.checkpoint`` (a file, or a snapshot directory;
+    without it the configuration's own snapshot) on ``args.device`` over the
+    test split: Synapse and ACDC volumes print and return ``{"mean_dice",
+    "mean_hd95"}``, the skin presets ``{"dice", "acc", "iou"}``. ``test_set``
+    (anything with ``volumes()`` yielding {image, label, case_name}) replaces
+    Synapse's ``test_vol`` list under ``cfg.data``."""
     import torch
 
     from cenet_tpu_torch.core.checkpoint import load_checkpoint, snapshot_checkpoint
     from cenet_tpu_torch.core.device import resolve_device
     from cenet_tpu_torch.evaluate.predict import make_predict_fn
+    from cenet_tpu_torch.evaluate.skin import skin_test
     from cenet_tpu_torch.models.cenet import build_model
 
     snap = snapshot_path(cfg)
@@ -385,21 +530,25 @@ def run_eval(cfg, args, test_set=None) -> dict:
         load_checkpoint(model, ckpt, cfg.model.model_version)
         log.info("loaded checkpoint %s on %s", ckpt, device)
         compute_dtype = torch.bfloat16 if cfg.train.amp else torch.float32  # cenet_tpu/train/trainer.py:112
-        dice, hd = _volume_eval(make_predict_fn(model, compute_dtype), te_ds, cfg, device, log=log,
-                                save_hook=_save_hooks(args, cfg, snap, log))
-    result = {"mean_dice": dice, "mean_hd95": hd}
+        predict = make_predict_fn(model, compute_dtype)
+        if cfg.data.dataset in ("synapse", "acdc"):
+            dice, hd = _volume_eval(predict, te_ds, cfg, device, log=log, save_hook=_save_hooks(args, cfg, snap, log))
+            result = {"mean_dice": dice, "mean_hd95": hd}
+        else:
+            dice, acc, iou = skin_test(predict, _skin_batches(te_ds, cfg.train.batch_size, device),
+                                       save_hook=_overlay_hook(args, snap, log))
+            log.info("test dice %.4f acc %.4f iou %.4f", dice, acc, iou)
+            result = {"dice": dice, "acc": acc, "iou": iou}
     print(json.dumps(result), flush=True)
     return result
 
 
 def main(argv: Optional[Sequence[str]] = None, test_set=None):
     """Parse ``argv`` and run ``train`` (returns the :class:`Trainer`) or ``eval``
-    (returns its metrics). ``test_set`` replaces the ``test_vol`` list."""
+    (returns its metrics). ``test_set`` replaces Synapse's ``test_vol`` list."""
     args = build_argparser().parse_args(argv)
     if args.mode == "bench":
         raise SystemExit(NOT_PORTED["bench"])
-    if args.preset != "synapse":
-        raise SystemExit(NOT_PORTED[args.preset])
     if args.mesh or args.coordinator:
         raise SystemExit(NOT_PORTED["mesh"])
     if args.mode == "train" and args.model_stats:

@@ -1,13 +1,22 @@
-"""Host-side augmentation of Synapse training slices.
+"""Host-side augmentation pipelines, copies of ``cenet_tpu/data/augment.py``.
 
-A copy of ``SynapseAug`` and its helpers from ``cenet_tpu/data/augment.py``
-(the port imports nothing of the JAX package): the reference's imgaug
-``SomeOf(0-4)`` pipeline (``dataset_synapse.py:86-97``) of flips, additive
-Gaussian noise, Gaussian blur, linear contrast, affine scale/rotate/shear/
-translate and a piecewise-affine-like distortion, in numpy/scipy (and OpenCV
-where it is installed, as in the JAX package). For the same input and the same
-``np.random.Generator`` state it returns the same arrays, bit for bit. The
-ACDC ``RandomGenerator`` and the skin pipeline are later work.
+The port imports nothing of the JAX package, so it keeps its own copies of
+the reference's three pipelines:
+
+* the ACDC ``RandomGenerator`` (``dataset_acdc.py:32-48``): 50% rot90×k and a
+  flip, else 50% a rotation in [−20, 20) at order 0; then a zoom to img_size
+  (cubic image, nearest label) — :func:`random_generator`;
+* the Synapse imgaug ``SomeOf(0-4)`` pipeline (``dataset_synapse.py:86-97``)
+  of flips, additive Gaussian noise, Gaussian blur, linear contrast, affine
+  scale/rotate/shear/translate and a piecewise-affine-like distortion —
+  :class:`SynapseAug`;
+* the skin albumentations pipeline (``dataset_ham.py:273-281``): Rotate ±30,
+  horizontal and vertical flips, brightness/contrast, Gaussian blur and an
+  elastic transform — :class:`SkinAug`.
+
+They run in numpy/scipy, and in OpenCV where it is installed, as in the JAX
+package. For the same input and the same ``np.random.Generator`` state each
+returns the same arrays as the JAX package, bit for bit, on either path.
 
 Every transform takes and returns numpy arrays and an explicit
 ``np.random.Generator``: deterministic per (seed, epoch, index), never global
@@ -27,6 +36,36 @@ try:
     import cv2
 except ImportError:  # pragma: no cover
     cv2 = None
+
+
+def random_rot_flip(image: np.ndarray, label: np.ndarray, rng: np.random.Generator):
+    k = int(rng.integers(0, 4))
+    image = np.rot90(image, k)
+    label = np.rot90(label, k)
+    axis = int(rng.integers(0, 2))
+    image = np.flip(image, axis=axis).copy()
+    label = np.flip(label, axis=axis).copy()
+    return image, label
+
+
+def random_rotate(image: np.ndarray, label: np.ndarray, rng: np.random.Generator):
+    angle = int(rng.integers(-20, 20))
+    image = ndimage.rotate(image, angle, order=0, reshape=False)
+    label = ndimage.rotate(label, angle, order=0, reshape=False)
+    return image, label
+
+
+def random_generator(image: np.ndarray, label: np.ndarray, out_size: int, rng: np.random.Generator):
+    """The reference RandomGenerator: branch probabilities then zoom to out_size."""
+    if rng.random() > 0.5:
+        image, label = random_rot_flip(image, label, rng)
+    elif rng.random() > 0.5:
+        image, label = random_rotate(image, label, rng)
+    h, w = image.shape
+    if h != out_size or w != out_size:
+        image = ndimage.zoom(image, (out_size / h, out_size / w), order=3)
+        label = ndimage.zoom(label, (out_size / h, out_size / w), order=0)
+    return image.astype(np.float32), label.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=8)
@@ -169,3 +208,68 @@ class SynapseAug:
         img = _sample_bilinear(image, yy + dy, xx + dx)
         lab = _sample_nearest(label, yy + dy, xx + dx)
         return img, lab
+
+
+class SkinAug:
+    """Rotate(±30, p=.5) / HFlip(.5) / VFlip(.5) / RandomBrightnessContrast(.3) /
+    GaussianBlur(.3) / ElasticTransform(.3) on HWC uint8 image + HW mask
+    (``dataset_ham.py:273-281``)."""
+
+    def __call__(self, image: np.ndarray, mask: np.ndarray, rng: np.random.Generator):
+        if rng.random() < 0.5:
+            angle = rng.uniform(-30, 30)
+            image = self._rotate_img(image, angle)
+            mask = self._rotate_mask(mask, angle)
+        if rng.random() < 0.5:
+            image, mask = image[:, ::-1].copy(), mask[:, ::-1].copy()
+        if rng.random() < 0.5:
+            image, mask = image[::-1].copy(), mask[::-1].copy()
+        if rng.random() < 0.3:
+            alpha = 1.0 + rng.uniform(-0.2, 0.2)
+            beta = rng.uniform(-0.2, 0.2) * 255
+            image = np.clip(alpha * image.astype(np.float32) + beta, 0, 255).astype(image.dtype)
+        if rng.random() < 0.3:
+            sigma = rng.uniform(0.5, 1.5)
+            image = ndimage.gaussian_filter(image.astype(np.float32), (sigma, sigma, 0)).astype(image.dtype)
+        if rng.random() < 0.3:
+            image, mask = self._elastic(image, mask, rng)
+        return image, mask
+
+    @staticmethod
+    def _rotate_img(image, angle):
+        if cv2 is not None:
+            # cv2.warpAffine takes only CV_8U/16U/32F: float64 sources round-trip
+            # through float32
+            dt = image.dtype
+            src = image.astype(np.float32) if dt not in (np.uint8, np.uint16, np.float32) else image
+            h, w = image.shape[:2]
+            m = cv2.getRotationMatrix2D((w / 2, h / 2), angle, 1.0)
+            return cv2.warpAffine(src, m, (w, h), flags=cv2.INTER_LINEAR).astype(dt, copy=False)
+        return ndimage.rotate(image, angle, reshape=False, order=1)
+
+    @staticmethod
+    def _rotate_mask(mask, angle):
+        if cv2 is not None:
+            dt = mask.dtype
+            src = mask.astype(np.float32) if dt not in (np.uint8, np.uint16, np.float32) else mask
+            h, w = mask.shape[:2]
+            m = cv2.getRotationMatrix2D((w / 2, h / 2), angle, 1.0)
+            return cv2.warpAffine(src, m, (w, h), flags=cv2.INTER_NEAREST).astype(dt, copy=False)
+        return ndimage.rotate(mask, angle, reshape=False, order=0)
+
+    @staticmethod
+    def _elastic(image, mask, rng, alpha=34.0, sigma=4.0):
+        h, w = mask.shape[:2]
+        dy = ndimage.gaussian_filter(rng.uniform(-1, 1, (h, w)), sigma) * alpha
+        dx = ndimage.gaussian_filter(rng.uniform(-1, 1, (h, w)), sigma) * alpha
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        coords = np.stack([yy + dy, xx + dx])
+        if image.ndim == 3:
+            img = np.stack(
+                [ndimage.map_coordinates(image[..., c], coords, order=1, mode="reflect") for c in range(image.shape[-1])],
+                axis=-1,
+            )
+        else:
+            img = ndimage.map_coordinates(image, coords, order=1, mode="reflect")
+        m = ndimage.map_coordinates(mask, coords, order=0, mode="reflect")
+        return img.astype(image.dtype), m.astype(mask.dtype)

@@ -1,9 +1,10 @@
-"""Per-case figures of the volume evaluation and the training run's metric curves.
+"""Per-case figures of the volume evaluation, the training run's metric curves
+and the skin contour overlays.
 
-Copies of ``save_im_gt_pd`` and ``plot_metric_curves`` from
+Copies of ``save_im_gt_pd``, ``plot_metric_curves`` and ``skin_overlay`` from
 ``cenet_tpu/evaluate/visualize.py`` (reference ``utils_synapse.py:26-48``,
-``utils.py:18-37``), for ``cli eval --save_figs`` and ``cli train``;
-matplotlib is imported at the call. The skin overlays are not ported yet.
+``utils.py:18-37``, ``utils_skin.py:44-93``), for ``cli eval --save_figs``
+and ``cli train``; matplotlib is imported at the call.
 """
 
 from __future__ import annotations
@@ -62,4 +63,26 @@ def plot_metric_curves(dices: Sequence[float], hd95s: Sequence[float], out_dir: 
     a2.set_title("mean hd95")
     fig.tight_layout()
     fig.savefig(os.path.join(out_dir, f"{stem}.png"))
+    plt.close(fig)
+
+
+def skin_overlay(image: np.ndarray, gt: np.ndarray, pred: np.ndarray, path: str):
+    """Contour overlay of GT (green) and prediction (red) on the RGB image
+    (HWC, or CHW as the port's batches hold it)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig, ax = plt.subplots(figsize=(5, 5))
+    img = image
+    if img.ndim == 3 and img.shape[0] in (1, 3) and img.shape[-1] not in (1, 3):
+        img = np.transpose(img, (1, 2, 0))
+    ax.imshow(np.clip(img, 0, 1) if img.dtype != np.uint8 else img)
+    ax.contour(gt > 0, colors="g", linewidths=1.2)
+    ax.contour(pred > 0, colors="r", linewidths=1.2)
+    ax.axis("off")
+    fig.tight_layout()
+    fig.savefig(path, bbox_inches="tight")
     plt.close(fig)

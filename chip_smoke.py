@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA device and ``nvcc``; imports nothing of JAX. Two main paths
-run, volume inference and training, each on two routes of the DSEB sites'
-diff attention: the interleaved route (K1, K3) the model takes, and the
-split-group route (K5, K6) of ``router.diff_attention_core``, selected here by
+run, volume inference and training (and last the ACDC and PH2 workloads
+through the CLI), each on two routes of the DSEB sites' diff attention: the
+interleaved route (K1, K3) the model takes, and the split-group route (K5,
+K6) of ``router.diff_attention_core``, selected here by
 rebinding ``router.diff_attention_interleaved`` (``split_route``); training
 also runs the split route with K7 and K8 in place of K6 and K4. Both paths
 run a third time with K9, K11 and K12 swapped in at their own sites
@@ -21,14 +22,18 @@ runs K10. Phases:
    every main-path shape (batch 2; fp32 with TF32 off and bf16), then at a
    32-slice chunk in bf16 (against the twin in slices of 2), K5 also against
    K1 on the same inputs, check that two runs there are bit-identical, and time
-   kernel, twin and the PyTorch library call there; then time plain math
+   kernel, twin and the PyTorch library call there (K1 also by device time,
+   ``tools/device_time.py::graph_ms``); K1 and K3 also at the ACDC and skin
+   presets' DSEB1 and DSEB2 head dims (``DIFF_SITES`` tagged ``acdc`` and
+   ``skin``: d, dv = 16, 32 and 32, 64; 32, 64 and 64, 128); then time plain math
    (``router.plain_attention``) against K2 in bf16 at dec1's head dims for
    maps of 8–64 MB, where the router's 32 MB rule draws its line;
    2b. the same for the backward kernels (K3, K4 at every site; K6, K7 at the
    DSEB sites and K8 at the dec1 site that training routes) on their gradients,
    in max-abs and in norm, and dλ for the diff kernels, at batch 2; at the
    training batch of 8, forward and backward kernels in fp32 and bf16 against
-   the twins in slices of 2, the backward's times in bf16, and whether two
+   the twins in slices of 2, the backward's times in bf16 (K3 also by device
+   time), and whether two
    runs on the same inputs are bit-identical (required of every backward that
    sums without atomics: K3, K4, K7; of K8 in dk and dv and of K6 in dq and
    dλ, whose repeat runs are also held to the twin); K6 is also held against
@@ -97,6 +102,17 @@ runs K10. Phases:
    from the epoch-1 step, equal to the bit under the determinism settings
    (``CUBLAS_WORKSPACE_CONFIG``, deterministic cuDNN and algorithms), and
    measured without them; img/s by ``--throughput`` beside phase 6's;
+   6c. the ACDC workload (run after 6b): ``cli train --preset acdc`` for two
+   epochs at full width on seeded ACDC-like files (64 train and 4 valid
+   slices of 256 × 216, two 10-slice test volumes) and ``cli eval`` of its
+   snapshot: launches as ``PRESET_PER_UNIT`` counts the steps, val chunks and
+   the cascade's test chunks, the val → test → ``best`` cascade fired on
+   epoch 0, eval's JSON equal to ``run_inference`` (full metrics,
+   unnormalised) on the ``best`` weights loaded apart, and one bf16 batch of 8
+   through the kernels held against the card's plain math;
+   6d. the PH2 workload: the same for ``--preset ph2`` (one epoch) on a seeded
+   200-image ``np/`` cache at 224², eval's JSON ``{"dice", "acc", "iou"}``
+   equal to ``skin_test`` on the ``best`` weights;
 7. where one training step's time goes: ``torch.profiler`` over one bf16 step
    (the card's busy time, and the host's), which must show the tensor-core
    kernels of K1–K4 and no CUDA-core instance of any of them;
@@ -165,6 +181,7 @@ from cenet_tpu_torch.ops import rms_norm as RMS  # noqa: E402
 from cenet_tpu_torch.ops import rotary as ROT  # noqa: E402
 from cenet_tpu_torch.ops import smallc_conv as SCK  # noqa: E402
 from cenet_tpu_torch.tools.device_time import graph_ms, rotated  # noqa: E402
+from cenet_tpu_torch.tools.synthetic import write_acdc, write_skin_cache  # noqa: E402
 from cenet_tpu_torch.train.losses import Criterion  # noqa: E402
 from cenet_tpu_torch.train.trainer import Trainer  # noqa: E402
 
@@ -234,17 +251,32 @@ def fwd_check(kernel, args, got, where):
 # Main-path sites of a Synapse chunk: (site, h, n, d, dv). Diff attention: q/k
 # (B, 2h, N, d), v (B, h, N, 2d), and for the split kernel the head views
 # q[:, 0::2] … k[:, 1::2] of the same q/k; attention: q/k (B, h, N, d), v (B, h, N, dv).
-DIFF_SITES = [("DSEB1", 8, 3136, 8, 16), ("DSEB2", 8, 784, 16, 32), ("DSEB3", 16, 196, 20, 40)]
+# The ACDC preset's DSEB heads (4, 4, 4) and the skin presets' (2, 2, 2) on the
+# same widths give the sites tagged with their preset: DSEB1 and DSEB2, which
+# their batches route (their DSEB3 crosses the router's limit only from 55 and
+# 110 images, a map of B·h·N²·4 bytes); their Nonlocal sites are Synapse's.
+DIFF_SITES = [("DSEB1", 8, 3136, 8, 16), ("DSEB2", 8, 784, 16, 32), ("DSEB3", 16, 196, 20, 40),
+              ("acdc DSEB1", 4, 3136, 16, 32), ("acdc DSEB2", 4, 784, 32, 64),
+              ("skin DSEB1", 2, 3136, 32, 64), ("skin DSEB2", 2, 784, 64, 128)]
 ATTN_SITES = [("dec1", 1, 3136, 64, 64), ("dec2", 1, 784, 128, 128)]
-TRAIN_SITES = ("DSEB1", "DSEB2", "dec1")  # routed at the training batch of 8
-# (site, kernel, h, n, d, dv) for phase 2 and phase 2b
+# routed at the training batch of 8
+TRAIN_SITES = ("DSEB1", "DSEB2", "dec1", "acdc DSEB1", "acdc DSEB2", "skin DSEB1", "skin DSEB2")
+
+
+def preset_of(site) -> str:
+    """The preset whose path holds ``site``: the tag before its name, else synapse."""
+    return site.split()[0] if " " in site else "synapse"
+
+
+# (site, kernel, h, n, d, dv) for phase 2 and phase 2b: K1 and K3 at every
+# preset's sites, the split route's kernels at Synapse's, as their paths run them
 SITES = ([(s, "diff_attention_interleaved_fwd", *dims) for s, *dims in DIFF_SITES]
          + [(s, "attention_fwd", *dims) for s, *dims in ATTN_SITES]
-         + [(s, "diff_attention_fwd", *dims) for s, *dims in DIFF_SITES])
+         + [(s, "diff_attention_fwd", *dims) for s, *dims in DIFF_SITES if preset_of(s) == "synapse"])
 BWD_SITES = ([(s, "diff_attention_interleaved_bwd", *dims) for s, *dims in DIFF_SITES]
              + [(s, "attention_bwd", *dims) for s, *dims in ATTN_SITES]
              + [(s, k, *dims) for k in ("diff_attention_bwd", "diff_attention_bwd_split")
-                for s, *dims in DIFF_SITES if s in TRAIN_SITES]
+                for s, *dims in DIFF_SITES if s in TRAIN_SITES and preset_of(s) == "synapse"]
              + [(s, "attention_bwd_fused", *dims) for s, *dims in ATTN_SITES if s in TRAIN_SITES])
 PALLAS = "cenet_tpu/ops/pallas_attention.py"
 # ``path``: the run whose launch counts the kernels line reports
@@ -499,6 +531,10 @@ def phase_kernels(exp_rate):
         row["ops_ms"], row["bytes_ms"] = bound(kernel, CHUNK, h, n, d, dv, 2)
         row["bound_ms"], row["bound_by"] = max(row["ops_ms"], row["bytes_ms"]), bound_by(row["ops_ms"], row["bytes_ms"])
         row["roofline_share"] = row["bound_ms"] / row["ms"]
+        if kernel == "diff_attention_interleaved_fwd":
+            # device time: a CUDA graph of calls on copies of the inputs that pass twice the L2
+            row["device_ms"] = graph_ms(kernel_fn(kernel), rotated(args))
+            row["device_roofline_share"] = row["bound_ms"] / row["device_ms"]
         row["exp_ms"] = exp_count(kernel, CHUNK, h, n) / exp_rate * 1e3
         del args, args2
         torch.cuda.empty_cache()
@@ -763,6 +799,9 @@ def phase_bwd_kernels(exp_rate):
             row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
             row["bound_by"] = bound_by(row["ops_ms"], row["bytes_ms"])
             row["roofline_share"] = row["bound_ms"] / row["ms"]
+            if kernel == "diff_attention_interleaved_bwd":
+                row["device_ms"] = graph_ms(bwd_kernel_fn(kernel), rotated(call))
+                row["device_roofline_share"] = row["bound_ms"] / row["device_ms"]
             row["exp_ms"] = exp_count(kernel, TRAIN_B, h, n) / exp_rate * 1e3
             del args, call
             torch.cuda.empty_cache()
@@ -2537,6 +2576,287 @@ def phase_rotary(n=3136):
 
 
 
+# Launches per unit of the ACDC and skin paths by the router's rule (a site
+# reaches its kernel when B·h·N·M·4 bytes pass 32 MiB): a training step at
+# batch 8 routes DSEB1, DSEB2 and dec1 (both presets); an ACDC val chunk of 8
+# (one slice, padded) DSEB1, DSEB2 and dec1; an ACDC test chunk of 32 also
+# dec2 (DSEB3 only from 55 images); a skin eval batch of 8 DSEB1, DSEB2 and
+# dec1, one of at most 6 images (a split's last) DSEB1 and dec1 only.
+PRESET_PER_UNIT = {
+    "train step": TRAIN_PER_STEP["interleaved"],
+    "acdc val chunk": {"diff_attention_interleaved_fwd": 2, "attention_fwd": 1},
+    "acdc test chunk": {"diff_attention_interleaved_fwd": 2, "attention_fwd": 2},
+    "skin batch of 8": {"diff_attention_interleaved_fwd": 2, "attention_fwd": 1},
+    "skin batch of at most 6": {"diff_attention_interleaved_fwd": 1, "attention_fwd": 1},
+}
+
+
+def expected_launches(units, names=()):
+    """The launches of ``units`` ({unit name: count}) by ``PRESET_PER_UNIT``,
+    with 0 for each of ``names`` that they do not launch."""
+    want = dict.fromkeys(names, 0)
+    for unit, count in units.items():
+        for name, n in PRESET_PER_UNIT[unit].items():
+            want[name] = want.get(name, 0) + n * count
+    return want
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def cascade_fired_on_epoch_0(log) -> bool:
+    """The CLI's log lines show epoch 0's test, then a new ``best`` saved."""
+    first = next((i for i, line in enumerate(log) if " test dice " in line), None)
+    return (first is not None and log[first].startswith("epoch 0 test dice")
+            and any(line.startswith("new best test dice") for line in log[first + 1:first + 2]))
+
+
+def kernels_against_twins(model, x, where):
+    """One bf16 eval batch ``x`` through ``model`` with the kernels (the launch
+    counts of that forward) and on the card's plain math (``router``'s limit
+    raised, as ``twins_on_card`` does), against the same batch in fp32 on the
+    plain math: the kernels' distance from fp32, in max abs and in norm, at
+    most twice the plain bf16 path's (both round the same activations to bf16
+    at other points), and their labels agree with the plain bf16 path's on at
+    least 99% of pixels. Returns the readings."""
+    K.reset_launches()
+    kern = make_predict_fn(model, torch.bfloat16)(x)
+    torch.cuda.synchronize()
+    launched = dict(K.LAUNCHES)
+    limit = router._SMALL_LIMIT
+    router._SMALL_LIMIT = 1 << 62
+    try:
+        plain = make_predict_fn(model, torch.bfloat16)(x)
+        fp32 = make_predict_fn(model, torch.float32)(x)
+    finally:
+        router._SMALL_LIMIT = limit
+    out = {"launches": launched, "max_abs_vs_plain": amax(kern - plain),
+           "max_abs_vs_fp32": amax(kern - fp32), "plain_max_abs_vs_fp32": amax(plain - fp32),
+           "norm_vs_fp32": rel_norm(kern, fp32), "plain_norm_vs_fp32": rel_norm(plain, fp32),
+           "argmax_agree_vs_plain": float((kern.argmax(1) == plain.argmax(1)).float().mean())}
+    check(out["max_abs_vs_fp32"] <= 2 * out["plain_max_abs_vs_fp32"]
+          and out["norm_vs_fp32"] <= 2 * out["plain_norm_vs_fp32"] and out["argmax_agree_vs_plain"] >= 0.99,
+          f"{where}: the kernels' bf16 batch against the plain math: {out}")
+    return out
+
+
+def drive_cli(argv, calls=()):
+    """``cli.main(argv)`` in-process with its stdout caught, the launch counts
+    from zero, and ``calls`` ((module, function name) pairs that the CLI looks
+    up when it calls them) wrapped to record their seconds: (result, stdout
+    lines, launches, the seconds of each call by function name, the wall
+    seconds)."""
+    import io
+
+    from cenet_tpu_torch.cli import main as cli
+
+    seconds = {name: [] for _, name in calls}
+    saved = [(module, name, getattr(module, name)) for module, name in calls]
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            result = fn(*a, **kw)
+            seconds[name].append(time.perf_counter() - t0)
+            return result
+
+        return call
+
+    out = io.StringIO()
+    for module, name, fn in saved:
+        setattr(module, name, timed(name, fn))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+    return result, out.getvalue().strip().splitlines(), dict(K.LAUNCHES), seconds, time.perf_counter() - t0
+
+
+def phase_acdc():
+    """6c: the ACDC workload. Seeded ACDC-like files at 256 × 216 (64 train and
+    4 valid slices, two 10-slice test volumes, labels 0–3), then ``cli.main(["train",
+    "--preset", "acdc", …, "--max_epochs", "2", "--throughput"])`` at the
+    preset's full width (CENet-b2, 224², batch 8, bf16) and ``cli.main(["eval",
+    "--preset", "acdc", …])`` from its snapshot. Requires: the launches that
+    ``PRESET_PER_UNIT`` gives for its 16 steps, 8 val chunks and the test
+    chunks of each test the cascade ran; the val → test → ``best`` cascade
+    fired on epoch 0 and ``best`` written; tags, step files, curve rows and
+    finite losses; the eval JSON equal to ``run_inference`` (full metrics,
+    unnormalised) on the ``best`` weights loaded apart, with 2 test chunks'
+    launches; one bf16 batch of 8 slices through the kernels held against the
+    plain math (``kernels_against_twins``: 2 K1, 1 K2). Reports the phase's
+    seconds, ``--throughput`` img/s and the seconds of each val and test.
+    Returns the launch counts of the train run."""
+    from cenet_tpu_torch.cli import main as cli
+    from cenet_tpu_torch.core.checkpoint import CheckpointManager, load_checkpoint
+    from cenet_tpu_torch.data.acdc import ACDCDataset
+
+    cfg = get_preset("acdc")
+    t_phase = time.perf_counter()
+    losses, train_step = [], Trainer.train_step
+
+    def recording_step(self, images, labels):
+        losses.append(train_step(self, images, labels))
+        return losses[-1]
+
+    with tempfile.TemporaryDirectory() as root:
+        # ACDC's layout at an ACDC-like 256 × 216: 64 train and 4 valid slices, two 10-slice test volumes
+        write_acdc(root, seed=31, n_train=64, n_valid=4, n_test=2, depth=10)
+        common = ["--preset", "acdc", "--root_path", root, "--list_dir", root, "--output_dir",
+                  os.path.join(root, "out"), "--max_epochs", "2"]
+        Trainer.train_step = recording_step
+        try:
+            trainer, lines, launches, seconds, train_s = drive_cli(["train", *common, "--throughput"],
+                                                                   ((cli, "_acdc_val"), (cli, "_volume_eval")))
+        finally:
+            Trainer.train_step = train_step
+        steps = trainer.step
+        del trainer
+        torch.cuda.empty_cache()
+        snap = cli.snapshot_path(cli.make_config(cli.build_argparser().parse_args(["train", *common])))
+        mgr = CheckpointManager(snap)
+        tags, step_files = mgr.available_tags(), mgr.all_steps()
+        with open(os.path.join(snap, "result.tsv")) as f:
+            rows = [line.split("\t") for line in f.read().splitlines()[1:]]
+        best = read_json(os.path.join(snap, "metrics_best.json")) if "best" in tags else None
+        throughput = json.loads(lines[-1])
+        result, eval_lines, eval_launches, _, eval_s = drive_cli(["eval", *common])
+        model = load_checkpoint(build_model(cfg, device=DEV, seed=1), os.path.join(snap, "best.pth"))
+        predict = make_predict_fn(model, torch.bfloat16)
+        inf = VolumeInferencer(predict, VolumeInferenceConfig(img_size=cfg.data.img_size, normalize=False,
+                                                              num_classes=cfg.model.num_classes), device=DEV)
+        cases = list(ACDCDataset(root, root, "test", cfg.data.img_size, preload=False).volumes())
+        dice, hd = run_inference(inf, cases, full_metrics=True)
+        ds = ACDCDataset(root, root, "train", cfg.data.img_size)
+        x = torch.from_numpy(np.stack([ds.get_train(i, np.random.default_rng(i))["image"] for i in range(TRAIN_B)])
+                             .transpose(0, 3, 1, 2).copy()).to(DEV)
+        twins = kernels_against_twins(model, x, "acdc eval batch of 8")
+        del model
+        torch.cuda.empty_cache()
+    loss_values = torch.stack(losses).cpu().tolist()
+    tests, test_chunks = len(seconds["_volume_eval"]), sum(-(-c["image"].shape[0] // CHUNK) for c in cases)
+    val_chunks = 2 * 4  # two epochs of four valid slices, one padded chunk each
+    want = expected_launches({"train step": steps, "acdc val chunk": val_chunks,
+                              "acdc test chunk": tests * test_chunks}, launches)
+    log = [line.split("] ", 1)[-1] for line in lines if " val dice " in line or " test dice " in line]
+    emit({"phase": "acdc", "steps": steps, "losses": loss_values, "tags": tags, "step_files": step_files,
+          "result_rows": rows, "best": best, "log": log, "throughput": throughput,
+          "img_per_s": throughput.get("value"), "train_s": train_s, "val_s": seconds["_acdc_val"],
+          "test_s": seconds["_volume_eval"], "launches": launches, "expected_launches": want,
+          "cli_eval": {"printed": result, "direct": {"mean_dice": dice, "mean_hd95": hd}, "seconds": eval_s,
+                       "launches": eval_launches},
+          "kernels_against_twins": twins, "phase_s": time.perf_counter() - t_phase})
+    check(steps == 16 and launches == want, f"acdc train: {steps} steps, launches {launches}, expected {want}")
+    check(cascade_fired_on_epoch_0(log) and best is not None and "best" in tags,
+          f"acdc train: the cascade did not fire on epoch 0: {log}")
+    check(tags[:2] == ["best", "final"] and 1 <= len(step_files) <= cfg.train.ckpt_keep and len(rows) == 2,
+          f"acdc train: tags {tags}, step files {step_files}, curve rows {rows}")
+    check(len(loss_values) == steps and all(np.isfinite(loss_values)), f"acdc train: losses {loss_values}")
+    check(throughput.get("metric") == "train_images_per_sec" and throughput.get("value", 0) > 0,
+          f"acdc train: the last line is not the --throughput line: {lines[-1]}")
+    check(result == {"mean_dice": dice, "mean_hd95": hd} and json.loads(eval_lines[-1]) == result,
+          f"acdc eval printed {result}, run_inference on the best weights {(dice, hd)}")
+    check_launches(eval_launches, PRESET_PER_UNIT["acdc test chunk"], test_chunks, "acdc eval")
+    check_launches(twins["launches"], PRESET_PER_UNIT["acdc val chunk"], 1, "acdc eval batch of 8")
+    return launches
+
+
+def phase_skin(dataset="ph2"):
+    """6d: the PH2 workload. A seeded 200-image ``np/`` cache at 224² (PH2's
+    80/20/100 split), then ``cli.main(["train", "--preset", "ph2", …,
+    "--max_epochs", "1", "--throughput"])`` at the preset's full width
+    (CENet-b2, 224², batch 8, bf16) and ``cli.main(["eval", "--preset", "ph2",
+    …])`` from its snapshot. Requires: the launches that ``PRESET_PER_UNIT``
+    gives for its 10 steps, the val split's batches (8, 8, 4) and, for each test
+    the cascade ran, the test split's (12 of 8, one of 4); the cascade fired on
+    epoch 0 and ``best`` written; finite losses; the eval JSON ``{"dice", "acc",
+    "iou"}`` equal to ``skin_test`` on the ``best`` weights loaded apart, with
+    the test split's launches; one bf16 batch of 8 images through the kernels
+    held against the plain math (2 K1, 1 K2). Reports the phase's seconds,
+    ``--throughput`` img/s and the seconds of each val and test. Returns the
+    launch counts of the train run."""
+    from cenet_tpu_torch.cli import main as cli
+    from cenet_tpu_torch.core.checkpoint import CheckpointManager, load_checkpoint
+    from cenet_tpu_torch.data.skin import SkinDataset
+    from cenet_tpu_torch.evaluate import skin as SKIN
+
+    cfg = get_preset(dataset)
+    t_phase = time.perf_counter()
+    losses, train_step = [], Trainer.train_step
+
+    def recording_step(self, images, labels):
+        losses.append(train_step(self, images, labels))
+        return losses[-1]
+
+    def batch_units(n):
+        full, last = divmod(n, TRAIN_B)
+        units = {"skin batch of 8": full}
+        if last:
+            check(last <= 6, f"{dataset}: a last batch of {last} images routes DSEB2 too")
+            units["skin batch of at most 6"] = 1
+        return units
+
+    with tempfile.TemporaryDirectory() as root:
+        write_skin_cache(root, size=cfg.data.img_size, n=200, seed=41)  # PH2's 80/20/100 split
+        common = ["--preset", dataset, "--root_path", root, "--output_dir", os.path.join(root, "out"),
+                  "--max_epochs", "1"]
+        Trainer.train_step = recording_step
+        try:
+            trainer, lines, launches, seconds, train_s = drive_cli(["train", *common, "--throughput"],
+                                                                   ((cli, "_quick_val"), (SKIN, "skin_test")))
+        finally:
+            Trainer.train_step = train_step
+        steps = trainer.step
+        del trainer
+        torch.cuda.empty_cache()
+        snap = cli.snapshot_path(cli.make_config(cli.build_argparser().parse_args(["train", *common])))
+        tags = CheckpointManager(snap).available_tags()
+        best = read_json(os.path.join(snap, "metrics_best.json")) if "best" in tags else None
+        throughput = json.loads(lines[-1])
+        result, eval_lines, eval_launches, _, eval_s = drive_cli(["eval", *common])
+        model = load_checkpoint(build_model(cfg, device=DEV, seed=1), os.path.join(snap, "best.pth"))
+        test = SkinDataset(dataset, root, "test", cfg.data.img_size)
+        n_val, n_test = len(SkinDataset(dataset, root, "val", cfg.data.img_size)), len(test)
+        direct = SKIN.skin_test(make_predict_fn(model, torch.bfloat16), cli._skin_batches(test, TRAIN_B, DEV))
+        x = next(cli._skin_batches(test, TRAIN_B, DEV))["image"]
+        twins = kernels_against_twins(model, x, f"{dataset} eval batch of 8")
+        del model
+        torch.cuda.empty_cache()
+    loss_values = torch.stack(losses).cpu().tolist()
+    tests = len(seconds["skin_test"])
+    units = collections.Counter({"train step": steps})
+    units.update(batch_units(n_val))
+    for _ in range(tests):
+        units.update(batch_units(n_test))
+    want = expected_launches(units, launches)
+    log = [line.split("] ", 1)[-1] for line in lines if " val dice " in line or " test dice " in line]
+    emit({"phase": dataset, "steps": steps, "losses": loss_values, "tags": tags, "best": best, "log": log,
+          "throughput": throughput, "img_per_s": throughput.get("value"), "train_s": train_s,
+          "val_s": seconds["_quick_val"], "test_s": seconds["skin_test"], "split": [steps * TRAIN_B, n_val, n_test],
+          "launches": launches, "expected_launches": want,
+          "cli_eval": {"printed": result, "direct": dict(zip(("dice", "acc", "iou"), direct)), "seconds": eval_s,
+                       "launches": eval_launches},
+          "kernels_against_twins": twins, "phase_s": time.perf_counter() - t_phase})
+    check(steps == 10 and launches == want, f"{dataset} train: {steps} steps, launches {launches}, expected {want}")
+    check(cascade_fired_on_epoch_0(log) and best is not None and "best" in tags,
+          f"{dataset} train: the cascade did not fire on epoch 0: {log}")
+    check(len(loss_values) == steps and all(np.isfinite(loss_values)), f"{dataset} train: losses {loss_values}")
+    check(throughput.get("metric") == "train_images_per_sec" and throughput.get("value", 0) > 0,
+          f"{dataset} train: the last line is not the --throughput line: {lines[-1]}")
+    check(result == dict(zip(("dice", "acc", "iou"), direct)) and json.loads(eval_lines[-1]) == result,
+          f"{dataset} eval printed {result}, skin_test on the best weights {direct}")
+    check_launches(eval_launches, expected_launches(batch_units(n_test)), 1, f"{dataset} eval")
+    check_launches(twins["launches"], PRESET_PER_UNIT["skin batch of 8"], 1, f"{dataset} eval batch of 8")
+    return launches
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -2573,6 +2893,8 @@ def main():
         torch.cuda.empty_cache()
         launches["rotary"], rotary_row = phase_rotary()
         launches["cli-train"] = phase_cli_train(train_root, train_img_per_s)
+    launches["acdc"] = phase_acdc()
+    launches["ph2"] = phase_skin("ph2")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
 
     def record(name, spec, rows, err, weight=lambda r: 1):
@@ -2582,7 +2904,9 @@ def main():
         return {
             "name": name, "k": spec["k"], "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
             "path": spec["path"], "launches": launches[spec["path"]][name],
-            "cli_train_launches": launches["cli-train"].get(name, 0), "max_abs_err": err,
+            "cli_train_launches": launches["cli-train"].get(name, 0),
+            "acdc_launches": launches["acdc"].get(name, 0), "ph2_launches": launches["ph2"].get(name, 0),
+            "max_abs_err": err,
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": bound_by(total("ops_ms"), total("bytes_ms")),
             "library_ms": None if any(r["library_ms"] is None for r in rows) else total("library_ms"),
@@ -2593,10 +2917,23 @@ def main():
     # training path, times for one training step at B=8 (the sum over the sites
     # it routes); K9, K11, K12: each site's time times its calls per forward;
     # K10: the rotary path's forward (q and k) at batch 8
-    records = [record(name, spec, [r for r in sites if r["kernel"] == name], errs[name])
+    # (Synapse's sites; K1 and K3 also carry each site of the other presets apart)
+    def synapse(r):
+        return preset_of(r["site"]) == "synapse"
+
+    def preset_sites(rows):
+        keys = ("site", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "roofline_share",
+                "device_roofline_share")
+        return [{k: r[k] for k in keys} for r in rows if not synapse(r)]
+
+    records = [record(name, spec, [r for r in sites if r["kernel"] == name and synapse(r)], errs[name])
                for name, spec in KERNELS.items()]
-    records += [record(name, spec, [r for r in bwd_sites if r["kernel"] == name and "ms" in r], bwd_errs[name])
-                for name, spec in BWD_KERNELS.items()]
+    records += [record(name, spec, [r for r in bwd_sites if r["kernel"] == name and "ms" in r and synapse(r)],
+                       bwd_errs[name]) for name, spec in BWD_KERNELS.items()]
+    for r in records:
+        if r["name"] in ("diff_attention_interleaved_fwd", "diff_attention_interleaved_bwd"):
+            rows = sites if r["name"] == "diff_attention_interleaved_fwd" else bwd_sites
+            r["preset_sites"] = preset_sites([x for x in rows if x["kernel"] == r["name"] and "ms" in x])
     records += [record(name, spec, [r for r in swap_rows if r["kernel"] == name], swap_errs[name],
                        weight=lambda r: r["calls_per_forward"])
                 for name, spec in SWAP_KERNELS.items() if name != "rotary"]

@@ -14,7 +14,10 @@ directory:
   the CLI's loader (``load_checkpoint``), it gives back the ``.pth``'s
   state_dict bit for bit, so the CLI prints the ``.pth``'s JSON line for it
   (one CLI run serves both formats);
-* the modes, presets and options not ported yet exit naming their ROADMAP item;
+* the ACDC and skin presets' modes run: ``train --preset acdc`` and ``eval``
+  of acdc, ham10000 and ph2 on seeded data, each eval's JSON equal to its
+  metrics computed directly;
+* the modes and options not ported yet exit naming their ROADMAP item;
   a directory without a checkpoint raises ``FileNotFoundError``, an Orbax tag
   directory (or a snapshot that holds one) ``NotImplementedError``; without
   ``--device`` the CLI needs the card.
@@ -40,6 +43,7 @@ import torch
 from scipy import ndimage
 
 import torch_parity  # noqa: F401  (one intra-op thread for torch)
+from cenet_tpu_torch.tools.synthetic import write_acdc, write_skin_cache
 from cenet_tpu.convert.torch2jax import convert_state_dict
 from cenet_tpu.core.checkpoint import _save_npz
 from cenet_tpu.evaluate import nifti as jnifti
@@ -48,8 +52,11 @@ from cenet_tpu_torch import native
 from cenet_tpu_torch.cli import main as cli
 from cenet_tpu_torch.core import config as tconfig
 from cenet_tpu_torch.core.checkpoint import load_checkpoint, state_dict_from_npz
+from cenet_tpu_torch.data.acdc import ACDCDataset
+from cenet_tpu_torch.data.skin import SkinDataset
 from cenet_tpu_torch.evaluate import nifti as tnifti
 from cenet_tpu_torch.evaluate.predict import make_predict_fn
+from cenet_tpu_torch.evaluate.skin import skin_test
 from cenet_tpu_torch.evaluate.volume import VolumeInferenceConfig, VolumeInferencer, run_inference
 from cenet_tpu_torch.models.cenet import build_model
 
@@ -159,11 +166,7 @@ def test_cli_eval_npz_equals_pth(data):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--preset", "acdc"], "item 8"),
     (["bench", "--preset", "synapse"], "items 1 and 5"),
-    (["eval", "--preset", "acdc"], "item 8"),
-    (["eval", "--preset", "ham10000"], "item 8"),
-    (["eval", "--preset", "ph2"], "item 8"),
     (["eval", "--preset", "synapse", "--mesh", "2"], "item 11"),
     (["eval", "--preset", "synapse", "--coordinator", "localhost:1234"], "item 11"),
     (["train", "--preset", "synapse", "--model_stats"], "item 12"),
@@ -171,6 +174,56 @@ def test_cli_eval_npz_equals_pth(data):
 def test_unported_modes_presets_and_options_exit(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP queue 1 {item}"):
         cli.main(argv)
+
+
+def _write_preset_data(preset, root):
+    """Seeded data of ``preset`` under ``root``: a few ACDC slices and one test
+    volume, or a skin cache whose test split holds four images."""
+    if preset == "acdc":
+        write_acdc(str(root), n_train=4, n_valid=1, n_test=1, depth=2, h=80, w=72)
+    else:
+        write_skin_cache(str(root), IMG, n=4, rows={"ham10000": 9004, "ph2": 104}[preset])
+
+
+@pytest.mark.parametrize("mode, preset", [("train", "acdc"), ("eval", "acdc"), ("eval", "ham10000"), ("eval", "ph2")])
+def test_acdc_and_skin_modes_run(mode, preset, slim, tmp_path):
+    """The modes that exited before their port: ``train --preset acdc`` (one
+    epoch at batch 2) writes its step, ``final`` and curve; ``eval`` of a
+    seeded b0's ``.pth`` prints the JSON of its preset, equal to the metrics
+    computed directly: ACDC's full-metric ``run_inference`` on unnormalised
+    volumes, the skin presets' ``skin_test``."""
+    _write_preset_data(preset, tmp_path)
+    argv = [mode, "--preset", preset, "--encoder", ENCODER, "--device", "cpu", "--no-amp", "--root_path",
+            str(tmp_path), "--list_dir", str(tmp_path), "--output_dir", str(tmp_path / "out"), "--batch_size", "2"]
+    cfg = cli.make_config(cli.build_argparser().parse_args(argv))
+    if mode == "train":
+        trainer = cli.main(argv + ["--max_epochs", "1"])
+        snap = os.path.join(str(tmp_path / "out"), os.listdir(tmp_path / "out")[0])
+        assert trainer.step == 2 and os.path.exists(os.path.join(snap, "steps", "2.pth"))
+        assert os.path.exists(os.path.join(snap, "final.pth"))
+        assert len(open(os.path.join(snap, "result.tsv")).read().splitlines()) == 2
+        return
+    model = build_model(cfg, device="cpu", seed=3)
+    torch.save({"state_dict": model.state_dict()}, tmp_path / "w.pth")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = cli.main(argv + ["--checkpoint", str(tmp_path / "w.pth")])
+    assert json.loads(out.getvalue().strip().splitlines()[-1]) == got
+    predict = make_predict_fn(model, torch.float32)
+    if preset == "acdc":
+        inf = VolumeInferencer(predict, VolumeInferenceConfig(img_size=IMG, normalize=False, num_classes=4),
+                               device="cpu")
+        dice, hd = run_inference(inf, list(ACDCDataset(str(tmp_path), str(tmp_path), "test", IMG).volumes()),
+                                 full_metrics=True)
+        assert got == {"mean_dice": dice, "mean_hd95": hd}
+        return
+    ds = SkinDataset(preset, str(tmp_path), "test", IMG)
+    assert len(ds) == 4
+    image = torch.from_numpy(np.stack([ds.get_eval(i)["image"] for i in range(4)]).transpose(0, 3, 1, 2).copy())
+    label = np.stack([ds.get_eval(i)["label"] for i in range(4)])
+    dice, acc, iou = skin_test(predict, [{"image": image[:2], "label": label[:2]},
+                                         {"image": image[2:], "label": label[2:]}])
+    assert got == {"dice": dice, "acc": acc, "iou": iou}
 
 
 def test_checkpoint_directories_and_devices(data, slim, tmp_path, monkeypatch):

@@ -6,7 +6,9 @@ of ``chip_smoke.py``. K1–K8 run on the tensor cores in bf16 and on CUDA cores
 in fp32 (K5 is K1's kernel on split views, K7 K3's kernels with its own dv
 rounding, K6 a one-launch kernel of its own), so their shapes include the
 edges of 64-row tiles and of 16-deep steps (N, M of 1, 63, 65, 127, 129, 196,
-784 and 3136; d of 8, 16, 20 with dv = 2d, and d = dv = 64 and 128), the
+784 and 3136; d of 8, 16, 20, 32 and 64 with dv = 2d, and d = dv = 64 and
+128; the ACDC and skin presets' DSEB head dims (16, 32), (32, 64) and
+(64, 128) at 784 and 3136 tokens for K1 and K3), the
 strided views that the DSEB projections and ``Nonlocal`` hand over, and
 bit-identity checks of K1, K3 and K7 (δ and dλ included), K4, K6's dq, δ and
 dλ, and K8's dk and dv. Limits in max-abs
@@ -57,7 +59,10 @@ from cenet_tpu_torch.ops import smallc_conv as SC
 # (b, h, n, m, d) and (b, h, n, m, d, dv): ragged N/M and the slice's head dims
 DIFF_SHAPES = [(2, 2, 100, 100, 8), (1, 2, 196, 196, 20), (1, 1, 64, 100, 16), (1, 1, 196, 49, 64),
                (1, 1, 1, 1, 8), (1, 1, 1, 65, 16), (2, 1, 63, 65, 20), (1, 2, 65, 63, 8), (2, 2, 65, 1, 16),
-               (1, 2, 784, 784, 16), (2, 1, 196, 784, 20), (1, 1, 130, 70, 64)]
+               (1, 2, 784, 784, 16), (2, 1, 196, 784, 20), (1, 1, 130, 70, 64),
+               # the ACDC and skin presets' DSEB1 and DSEB2 head dims (d, dv = 2d)
+               (1, 1, 784, 784, 32), (1, 1, 784, 784, 64), (1, 1, 3136, 3136, 16), (1, 1, 3136, 3136, 32),
+               (1, 1, 3136, 3136, 64)]
 ATTN_SHAPES = [(2, 1, 100, 100, 64, 64), (1, 2, 196, 196, 16, 24), (1, 1, 100, 196, 8, 8), (1, 1, 64, 64, 20, 40),
                (1, 1, 130, 70, 128, 128), (1, 1, 1, 1, 64, 64), (1, 1, 1, 65, 20, 40), (2, 1, 63, 65, 64, 64),
                (1, 1, 65, 63, 128, 128), (1, 1, 65, 1, 16, 24), (1, 1, 3136, 3136, 64, 64)]
@@ -130,7 +135,10 @@ def test_cuda_diff_kernel_takes_strided_views(cuda):
 BWD_DIFF_SHAPES = [(2, 2, 100, 100, 8, 16), (1, 2, 196, 196, 20, 40), (1, 1, 64, 100, 16, 32),
                    (1, 1, 130, 70, 64, 128), (1, 1, 70, 65, 128, 24), (1, 1, 1, 63, 8, 16), (2, 1, 63, 65, 16, 32),
                    (1, 2, 65, 63, 20, 40), (2, 2, 1, 65, 20, 40), (1, 2, 784, 784, 8, 16),
-                   (2, 1, 784, 196, 16, 32), (1, 1, 196, 784, 20, 40)]
+                   (2, 1, 784, 196, 16, 32), (1, 1, 196, 784, 20, 40),
+                   # the ACDC and skin presets' DSEB1 and DSEB2 head dims
+                   (1, 1, 784, 784, 16, 32), (1, 1, 784, 784, 32, 64), (1, 1, 784, 784, 64, 128),
+                   (1, 1, 3136, 3136, 16, 32), (1, 1, 3136, 3136, 32, 64), (1, 1, 3136, 3136, 64, 128)]
 BWD_ATTN_SHAPES = [(2, 1, 100, 100, 64, 64), (1, 2, 196, 196, 16, 24), (1, 1, 100, 196, 8, 8),
                    (1, 1, 130, 70, 128, 128), (1, 1, 64, 64, 20, 40), (1, 1, 1, 65, 64, 64), (2, 1, 63, 65, 64, 64),
                    (1, 1, 65, 63, 128, 128), (1, 1, 3136, 3136, 64, 64)]

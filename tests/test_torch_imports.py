@@ -60,6 +60,21 @@ def test_eval_entry_modules_import_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+WORKLOAD_MODULES = ["data.acdc", "data.skin", "data.tta", "data.augment", "core.misc", "evaluate.skin", "tools.synthetic",
+                    "evaluate.visualize"]
+
+
+def test_acdc_and_skin_modules_import_no_jax():
+    """The ACDC and skin workloads' modules, imported together in one process,
+    import neither JAX nor the JAX package, nor matplotlib (the overlays import
+    it at their call) nor PIL (imported only to build a skin cache)."""
+    code = ("import sys; " + "; ".join(f"import cenet_tpu_torch.{m}" for m in WORKLOAD_MODULES) + "; print(sorted(m "
+            "for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cenet_tpu', 'matplotlib', 'PIL')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
 def test_cpu_tensors_never_touch_the_build_in_the_new_ops(monkeypatch):
     """K9–K12's wrappers and Functions take their twins for CPU tensors."""
     from cenet_tpu_torch.ops import depthwise, rms_norm, rotary, smallc_conv
