@@ -9,7 +9,9 @@
 
 Mirrors ``cenet_tpu/cli/main.py``: the same arguments (``build_argparser``,
 ``make_config``, ``snapshot_path`` are copies) plus ``--device``, the device
-the model runs on (the card by default, the CPU only when asked).
+the model runs on (the card by default, the CPU only when asked). Every model
+of the zoo runs: ``--model_version cenet|cenet_org`` and ``--encoder``
+pvt_v2_b0…b5 or resnet18…152.
 
 ``train`` is the JAX ``run_train``: the epoch loop with ``steps_per_call``
 batches stacked into ``Trainer.multi_step`` and the epoch-end flush, logs and

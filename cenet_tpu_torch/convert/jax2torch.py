@@ -100,8 +100,12 @@ def torch_key_for(
     key = key.replace("out.out_rb.", "out.out.0.")
     key = key.replace("out.out_conv.conv.", "out.out.1.conv.conv.")
     key = re.sub(r"^out\.rb\.", "out.rb.0.", key)
-    # monai Convolution wrapper: conv1/conv2/conv3 inside Unet blocks, UpTConv's up
-    key = re.sub(r"\.(conv1|conv2|conv3)\.(weight|bias)$", r".\1.conv.\2", key)
+    # monai Convolution wrapper: conv1/conv2/conv3 inside Unet blocks, UpTConv's up.
+    # Not in the backbone: a ResNet's conv1..conv3 are torchvision's plain convs
+    # (the JAX package's converter adds ".conv" there too, which no torchvision
+    # state_dict has)
+    if not key.startswith("backbone."):
+        key = re.sub(r"\.(conv1|conv2|conv3)\.(weight|bias)$", r".\1.conv.\2", key)
     key = re.sub(r"\.up\.(weight|bias)$", r".up.conv.\1", key)
     return key
 

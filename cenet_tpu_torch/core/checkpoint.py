@@ -214,10 +214,11 @@ def load_checkpoint(model: nn.Module, path: str, model_version: str = "cenet") -
 
 
 def load_pretrained_encoder(model: nn.Module, pth_path: str, encoder_prefix: str = "backbone") -> Dict[str, List[str]]:
-    """Load a torch PVT checkpoint into ``model.<encoder_prefix>``, filtered like
-    the reference (``encoder.py:75-84``: only the keys the backbone has), with a
-    loud report instead of a silent skip. Returns ``{"missing": backbone keys
-    the file lacks, "unused": file keys the backbone lacks}``."""
+    """Load a torch PVT or ResNet (torchvision keys) checkpoint into
+    ``model.<encoder_prefix>``, filtered like the reference (``encoder.py:75-84``:
+    only the keys the backbone has), with a loud report instead of a silent
+    skip. Returns ``{"missing": backbone keys the file lacks, "unused": file
+    keys the backbone lacks}``."""
     sd = load_torch_state_dict(pth_path)
     backbone = getattr(model, encoder_prefix)
     own = backbone.state_dict()

@@ -23,8 +23,12 @@
 //         tensor cores take fp32 only as TF32, which would break the fp32
 //         kernel's 1e-4 agreement with its twin.
 
+// Head dims past 128 (d, dv <= 512: the Nonlocal sites of the ResNet-50/101/152
+// encoders) run the wide designs of attention_wide.cuh in both dtypes.
+
 #include "attention_bwd_common.cuh"
 #include "attention_tc.cuh"
+#include "attention_wide.cuh"
 
 extern "C" int cenet_attention_bwd(
     int is_bf16, const void* q, const void* k, const void* v, const void* dout, const float* lse,
@@ -38,6 +42,7 @@ extern "C" int cenet_attention_bwd(
                         tc::operand(v, svb, svh, svn, B, H), tc::operand(dout, sob, soh, son, B, H), lse, delta,
                         static_cast<tc::bf16*>(dq), static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv),
                         H, N, M, D, DV, tc::out_vec(dq, D), tc::out_vec(dk, D), tc::out_vec(dv, DV)};
+    if (D > tc::MAX_DIM || DV > tc::MAX_DIM) return tc::bwd_wide_launch(a, B, s);
     return tc::bwd_launch(a, B, s);
   }
   // dq, dk, dv contiguous
@@ -46,5 +51,6 @@ extern "C" int cenet_attention_bwd(
                      {dq, nullptr}, {dk, nullptr}, dv, B, H, N, M, D, DV,
                      {{sqb, sqh, sqn}, {}}, {{skb, skh, skn}, {}}, {svb, svh, svn}, {sob, soh, son},
                      {sdq, {}}, {sdk, {}}};
+  if (D > cenet::MAX_D || DV > cenet::MAX_DV) return cenet::wide::bwd_launch(p, s);
   return cenet::bwd_launch<float, 1>(p, s);
 }

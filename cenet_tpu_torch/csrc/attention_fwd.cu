@@ -18,8 +18,12 @@
 //         tensor cores take fp32 only as TF32, whose 10-bit mantissa would
 //         break the fp32 kernel's 1e-4 agreement with its twin.
 
+// Head dims past 128 (d, dv <= 512: the Nonlocal sites of the ResNet-50/101/152
+// encoders) run the wide designs of attention_wide.cuh in both dtypes.
+
 #include "attention_fwd_common.cuh"
 #include "attention_tc.cuh"
+#include "attention_wide.cuh"
 
 extern "C" int cenet_attention_fwd(
     int is_bf16, const void* q, const void* k, const void* v,
@@ -32,9 +36,11 @@ extern "C" int cenet_attention_fwd(
     const tc::FwdArgs a{tc::operand(q, sqb, sqh, sqn, B, H), tc::operand(k, skb, skh, skn, B, H),
                         tc::operand(v, svb, svh, svn, B, H), static_cast<tc::bf16*>(o), lse, H, N, M, D, DV,
                         tc::out_vec(o, DV)};
+    if (D > tc::MAX_DIM || DV > tc::MAX_DIM) return tc::fwd_wide_launch(a, B, s);
     return tc::fwd_launch(a, B, s);
   }
   cenet::Params p{{q, nullptr}, {k, nullptr}, v, nullptr, o, lse, nullptr, B, H, N, M, D, DV,
                   {{sqb, sqh, sqn}, {}}, {{skb, skh, skn}, {}}, {svb, svh, svn}};
+  if (D > cenet::MAX_D || DV > cenet::MAX_DV) return cenet::wide::fwd_launch(p, s);
   return cenet::launch<1>(p, s);
 }

@@ -2,7 +2,9 @@
 
 Mirrors ``cenet_tpu/models/pvtv2.py``: four stages of OverlapPatchEmbed →
 N×(SRA attention + DWConv-MLP) → LayerNorm, returning NCHW maps at strides
-4/8/16/32. Tokens inside a stage are (B, N, C).
+4/8/16/32. Tokens inside a stage are (B, N, C). Initial weights are the JAX
+package's: N(0, 2/fan_out) for the patch-embedding, DWConv and SRA convs, a
+truncated normal of std 0.02 for the linears, zero biases but the SRA conv's.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch.nn as nn
 
 from cenet_tpu_torch.nn import functional as F
 from cenet_tpu_torch.nn.attention import SRAAttention
-from cenet_tpu_torch.nn.layers import Conv2d, DropPath, Dropout, LayerNorm, Linear
+from cenet_tpu_torch.nn.layers import TRUNC_NORMAL, Conv2d, DropPath, Dropout, LayerNorm, Linear
 
 
 class DWConv(nn.Module):
@@ -22,7 +24,8 @@ class DWConv(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.dwconv = Conv2d(dim, dim, 3, stride=1, padding=1, groups=dim, bias=True)
+        self.dwconv = Conv2d(dim, dim, 3, stride=1, padding=1, groups=dim, bias=True, weight_init="fan_out",
+                             bias_init="zeros")
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         B, N, C = x.shape
@@ -35,9 +38,9 @@ class MixFFN(nn.Module):
 
     def __init__(self, in_features: int, hidden_features: int, drop: float = 0.0):
         super().__init__()
-        self.fc1 = Linear(in_features, hidden_features)
+        self.fc1 = Linear(in_features, hidden_features, weight_init=TRUNC_NORMAL, bias_init="zeros")
         self.dwconv = DWConv(hidden_features)
-        self.fc2 = Linear(hidden_features, in_features)
+        self.fc2 = Linear(hidden_features, in_features, weight_init=TRUNC_NORMAL, bias_init="zeros")
         self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -49,12 +52,14 @@ class PVTBlock(nn.Module):
     """Pre-norm SRA attention + MixFFN with stochastic depth (reference ``pvtv2.py:112-149``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = False,
-                 drop_path: float = 0.0, sr_ratio: int = 1, attn_impl: str = "xla"):
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0, sr_ratio: int = 1,
+                 attn_impl: str = "xla"):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = SRAAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias, sr_ratio=sr_ratio, attn_impl=attn_impl)
+        self.attn = SRAAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias, attn_drop=attn_drop, proj_drop=drop,
+                                 sr_ratio=sr_ratio, attn_impl=attn_impl)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = MixFFN(dim, int(dim * mlp_ratio))
+        self.mlp = MixFFN(dim, int(dim * mlp_ratio), drop)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -67,7 +72,8 @@ class OverlapPatchEmbed(nn.Module):
 
     def __init__(self, patch_size: int, stride: int, in_chans: int, embed_dim: int):
         super().__init__()
-        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=stride, padding=patch_size // 2)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=stride, padding=patch_size // 2,
+                           weight_init="fan_out", bias_init="zeros")
         self.norm = LayerNorm(embed_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor):
@@ -83,7 +89,8 @@ class PVTv2(nn.Module):
     def __init__(self, in_chans: int = 3, embed_dims: Sequence[int] = (64, 128, 320, 512),
                  num_heads: Sequence[int] = (1, 2, 5, 8), mlp_ratios: Sequence[float] = (8, 8, 4, 4),
                  qkv_bias: bool = True, depths: Sequence[int] = (3, 4, 6, 3),
-                 sr_ratios: Sequence[int] = (8, 4, 2, 1), drop_path_rate: float = 0.1, attn_impl: str = "xla"):
+                 sr_ratios: Sequence[int] = (8, 4, 2, 1), drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.1, attn_impl: str = "xla"):
         super().__init__()
         self.embed_dims = tuple(embed_dims)
         dpr = torch.linspace(0, drop_path_rate, sum(depths)).tolist()
@@ -93,7 +100,8 @@ class PVTv2(nn.Module):
             ps, st, ic = patch_cfg[s]
             setattr(self, f"patch_embed{s + 1}", OverlapPatchEmbed(ps, st, ic, embed_dims[s]))
             setattr(self, f"block{s + 1}", nn.ModuleList(
-                PVTBlock(embed_dims[s], num_heads[s], mlp_ratios[s], qkv_bias, dpr[cur + i], sr_ratios[s], attn_impl)
+                PVTBlock(embed_dims[s], num_heads[s], mlp_ratios[s], qkv_bias, drop_rate, attn_drop_rate, dpr[cur + i],
+                         sr_ratios[s], attn_impl)
                 for i in range(depths[s])
             ))
             setattr(self, f"norm{s + 1}", LayerNorm(embed_dims[s], eps=1e-6))
@@ -121,10 +129,11 @@ PVT_VARIANTS = {
 }
 
 
-def make_pvt(variant: str, in_chans: int = 3, attn_impl: str = "xla", drop_path_rate: float = 0.1) -> PVTv2:
+def make_pvt(variant: str, in_chans: int = 3, attn_impl: str = "xla", drop_path_rate: float = 0.1, **kw) -> PVTv2:
+    """A PVTv2 variant; ``kw`` passes ``drop_rate`` and ``attn_drop_rate`` (0 in every reference config)."""
     cfg = dict(PVT_VARIANTS[variant])
     return PVTv2(
         in_chans=in_chans, embed_dims=cfg["embed_dims"], depths=cfg["depths"],
         mlp_ratios=cfg.get("mlp_ratios", (8, 8, 4, 4)), num_heads=(1, 2, 5, 8), sr_ratios=(8, 4, 2, 1),
-        qkv_bias=True, drop_path_rate=drop_path_rate, attn_impl=attn_impl,
+        qkv_bias=True, drop_path_rate=drop_path_rate, attn_impl=attn_impl, **kw,
     )

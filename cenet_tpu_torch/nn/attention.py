@@ -10,13 +10,13 @@ which send large maps on the card to the CUDA kernels.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 
 from cenet_tpu_torch.nn import functional as F
-from cenet_tpu_torch.nn.layers import BatchNorm, Conv2d, LayerNorm, Linear, RMSNorm
+from cenet_tpu_torch.nn.layers import TRUNC_NORMAL, BatchNorm, Conv2d, Dropout, LayerNorm, Linear, RMSNorm
 from cenet_tpu_torch.ops import rotary, router
 
 
@@ -27,39 +27,45 @@ def get_attention_core(impl: str) -> Callable:
     naive ones and which never reaches a kernel), give plain math; ``'pallas'``
     the routed core. ``'ring'`` and an ``'@axis'`` suffix raise
     ``NotImplementedError`` (sequence and tensor parallelism are not ported,
-    ROADMAP queue 1 item 10); any other name raises ``ValueError``."""
+    ROADMAP queue 1 item 11); any other name raises ``ValueError``."""
     core, axis = router.parse_impl(impl)
     if core not in ("xla", "chunked", "pallas", "ring"):
         raise ValueError(f"unknown attention impl: {impl}")
     if core == "ring" or axis is not None:
         raise NotImplementedError(f"attention impl {impl!r}: ring attention and '@axis' tensor parallelism are "
-                                  "not ported yet (ROADMAP queue 1 item 10)")
+                                  "not ported yet (ROADMAP queue 1 item 11)")
     return router.flash_attention_core if core == "pallas" else router.plain_attention
 
 
 class SRAAttention(nn.Module):
     """PVTv2 spatial-reduction attention (reference ``pvtv2.py:50-109``) on tokens
     (B, N, C) of an H×W map; with ``sr_ratio > 1`` the KV stream is downsampled by
-    a strided conv and a LayerNorm first."""
+    a strided conv and a LayerNorm first. ``attn_drop`` drops attention weights
+    after the softmax in train mode, which only the naive ``'xla'`` path
+    materialises (``cenet_tpu/nn/attention.py:98-113``: other impls raise);
+    ``proj_drop`` drops the projected output."""
 
-    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False, sr_ratio: int = 1,
-                 attn_impl: str = "xla"):
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False, qk_scale: Optional[float] = None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, sr_ratio: int = 1, attn_impl: str = "xla"):
         super().__init__()
         self.num_heads = num_heads
+        self.qk_scale = qk_scale
         self.sr_ratio = sr_ratio
         self.attn_impl = attn_impl
-        self.q = Linear(dim, dim, bias=qkv_bias)
-        self.kv = Linear(dim, dim * 2, bias=qkv_bias)
-        self.proj = Linear(dim, dim)
+        self.q = Linear(dim, dim, bias=qkv_bias, weight_init=TRUNC_NORMAL, bias_init="zeros")
+        self.kv = Linear(dim, dim * 2, bias=qkv_bias, weight_init=TRUNC_NORMAL, bias_init="zeros")
+        self.attn_drop = Dropout(attn_drop)
+        self.proj = Linear(dim, dim, weight_init=TRUNC_NORMAL, bias_init="zeros")
+        self.proj_drop = Dropout(proj_drop)
         if sr_ratio > 1:
-            self.sr = Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
+            self.sr = Conv2d(dim, dim, sr_ratio, stride=sr_ratio, weight_init="fan_out")
             self.norm = LayerNorm(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         B, N, C = x.shape
         h = self.num_heads
         hd = C // h
-        scale = F.round_to(hd**-0.5, x.dtype)
+        scale = F.round_to(self.qk_scale or hd**-0.5, x.dtype)
         q = self.q(x).reshape(B, N, h, hd).transpose(1, 2)
         if self.sr_ratio > 1:
             x_ = x.transpose(1, 2).reshape(B, C, H, W)
@@ -69,8 +75,15 @@ class SRAAttention(nn.Module):
             x_ = x
         M = x_.shape[1]
         kv = self.kv(x_).reshape(B, M, 2, h, hd).permute(2, 0, 3, 1, 4)
-        out = get_attention_core(self.attn_impl)(q * scale, kv[0], kv[1])
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        if self.attn_drop.rate > 0.0 and self.training:
+            if self.attn_impl != "xla":
+                raise NotImplementedError(f"attn_drop={self.attn_drop.rate} > 0 requires attn_impl='xla': the other "
+                                          "cores never materialise the attention weights")
+            weights = F.softmax_fp32(torch.matmul(q * scale, kv[0].transpose(-1, -2)))
+            out = torch.matmul(self.attn_drop(weights), kv[1])
+        else:
+            out = get_attention_core(self.attn_impl)(q * scale, kv[0], kv[1])
+        return self.proj_drop(self.proj(out.transpose(1, 2).reshape(B, N, C)))
 
 
 def lambda_init_fn(depth: int) -> float:
@@ -161,13 +174,83 @@ class MultiheadDiffAttn(nn.Module):
         return self.out_proj(attn)
 
 
+class MultiheadDiffAttnCross(nn.Module):
+    """Cross-attention differential attention (reference
+    ``multihead_diffattn.py:131-367``; ``cenet_tpu/nn/attention.py:246-312``).
+
+    ``variant`` "v1" takes the query from ``q_src`` (the decoder) and, on maps,
+    adds the source ``x`` back; "v2" adds nothing. With ``spatial`` set, ``x`` and
+    ``q_src`` are NCHW maps tokenised by the reference's raw ``.view``. Each
+    softmax group goes through the attention core with the shared v (dv = 2d):
+    plain math for ``'xla'`` and ``'chunked'``, the routed core (K2 on the card
+    above the router's limit) for ``'pallas'``.
+    """
+
+    def __init__(self, embed_dim: int, depth: int, num_heads: int, variant: str = "v1",
+                 spatial: Optional[int] = None, attn_impl: str = "xla"):
+        super().__init__()
+        self.variant, self.spatial = variant, spatial
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads // 2
+        self.lambda_init = lambda_init_fn(depth)
+        impl, axis = router.parse_impl(attn_impl)
+        self.core_impl = ("chunked" + (f"@{axis}" if axis else "")) if impl == "xla" else attn_impl
+        self.q_proj = Linear(embed_dim, embed_dim, bias=False)
+        self.k_proj = Linear(embed_dim, embed_dim, bias=False)
+        self.v_proj = Linear(embed_dim, embed_dim, bias=False)
+        self.out_proj = Linear(embed_dim, embed_dim, bias=False)
+        for name in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
+            setattr(self, name, nn.Parameter(torch.empty(self.head_dim)))
+        self.subln = RMSNorm(2 * self.head_dim, eps=1e-5, affine=False)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator = None) -> None:
+        """The λ vectors ~ N(0, 0.1²) (the projections reset themselves)."""
+        with torch.no_grad():
+            for t in (self.lambda_q1, self.lambda_k1, self.lambda_q2, self.lambda_k2):
+                t.normal_(0.0, 0.1, generator=generator)
+
+    def forward(self, x: torch.Tensor, q_src: torch.Tensor) -> torch.Tensor:
+        from cenet_tpu_torch.nn.dseb import tokenize_torch_view, untokenize_torch_view
+
+        spatial = self.spatial is not None and x.ndim == 4
+        x_res = x if self.variant == "v1" else q_src
+        if spatial:
+            h, w = x.shape[2], x.shape[3]
+            x_tok, q_tok = tokenize_torch_view(x), tokenize_torch_view(q_src)
+        else:
+            x_tok, q_tok = x, q_src
+        B, N, E = x_tok.shape
+        hn, hd = self.num_heads, self.head_dim
+        q = self.q_proj(q_tok).reshape(B, N, 2 * hn, hd).transpose(1, 2)
+        k = self.k_proj(x_tok).reshape(B, N, 2 * hn, hd).transpose(1, 2)
+        v = self.v_proj(x_tok).reshape(B, N, hn, 2 * hd).transpose(1, 2)
+        lambda_full = (torch.exp(torch.sum(self.lambda_q1 * self.lambda_k1))
+                       - torch.exp(torch.sum(self.lambda_q2 * self.lambda_k2)) + self.lambda_init).to(x_tok.dtype)
+        core = get_attention_core(self.core_impl)
+        qs = q * F.round_to(hd**-0.5, q.dtype)
+        attn = core(qs[:, 0::2], k[:, 0::2], v) - lambda_full * core(qs[:, 1::2], k[:, 1::2], v)
+        attn = self.subln(attn) * (1 - self.lambda_init)
+        attn = self.out_proj(attn.transpose(1, 2).reshape(B, N, E))
+        if spatial:
+            attn = untokenize_torch_view(attn, h, w)
+            if self.variant == "v1":
+                attn = attn + x_res
+        return attn
+
+
 class Nonlocal(nn.Module):
     """Non-local denoising block (reference ``modules/nlb.py:8-148``): θ/φ/g 1×1
-    convs, an HW×HW softmax affinity with C^-0.5 scale, output conv + BN, and the
-    learnable blend z = (1−w)·x + w·p."""
+    convs, an HW×HW affinity, output conv + BN, and the learnable blend
+    z = (1−w)·x + w·p. ``instantiation`` "softmax" normalises the affinity by a
+    softmax with C^-0.5 scale through the attention core (K2 on the card above
+    the router's limit); "dot_product" divides it by HW, in plain math."""
 
-    def __init__(self, dim: int, attn_impl: str = "xla"):
+    def __init__(self, dim: int, instantiation: str = "softmax", attn_impl: str = "xla"):
         super().__init__()
+        if instantiation not in ("softmax", "dot_product"):
+            raise NotImplementedError(instantiation)
+        self.instantiation = instantiation
         self.attn_impl = attn_impl
         self.conv_theta = Conv2d(dim, dim, 1)
         self.conv_phi = Conv2d(dim, dim, 1)
@@ -188,9 +271,41 @@ class Nonlocal(nn.Module):
         theta = self._tokens(self.conv_theta, tok)
         phi = self._tokens(self.conv_phi, tok)
         g = self._tokens(self.conv_g, tok)
-        core = get_attention_core(self.attn_impl)
-        out = core((theta * F.round_to(C**-0.5, theta.dtype))[:, None], phi[:, None], g[:, None])[:, 0]
+        if self.instantiation == "softmax":
+            core = get_attention_core(self.attn_impl)
+            out = core((theta * F.round_to(C**-0.5, theta.dtype))[:, None], phi[:, None], g[:, None])[:, 0]
+        else:
+            out = torch.matmul(torch.matmul(theta, phi.transpose(1, 2)) / (H * W), g)
         p = out.transpose(1, 2).reshape(B, C, H, W)
         p = self.bn(self.conv_out(p))
         w = self.w.to(x.dtype)
         return (1 - w) * x + w * p
+
+
+class WeightedNonLocalBlock(nn.Module):
+    """Weighted non-local variant (reference ``modules/nlb.py:151-191``): a softmax
+    affinity of down-projected θ/φ scaled by ic^-0.5 (fp32 softmax, plain math),
+    the value path g, an output conv + BN, and the learnable blend w."""
+
+    def __init__(self, in_channels: int, inter_channels: int):
+        super().__init__()
+        self.theta = Conv2d(in_channels, inter_channels, 1)
+        self.phi = Conv2d(in_channels, inter_channels, 1)
+        self.g = Conv2d(in_channels, inter_channels, 1)
+        self.out = Conv2d(inter_channels, in_channels, 1)
+        self.bn = BatchNorm(in_channels)
+        self.w = nn.Parameter(torch.tensor(0.5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        ic = self.theta.out_channels
+
+        def tokens(conv):
+            return conv(x).flatten(2).transpose(1, 2)  # (B, HW, ic)
+
+        theta, phi, g = tokens(self.theta), tokens(self.phi), tokens(self.g)
+        aff = F.softmax_fp32(torch.matmul(theta, phi.transpose(1, 2)) * F.round_to(ic**-0.5, x.dtype))
+        y = torch.matmul(aff, g).transpose(1, 2).reshape(B, ic, H, W)
+        y = self.bn(self.out(y))
+        w = self.w.to(x.dtype)
+        return (1 - w) * x + w * y

@@ -1,7 +1,9 @@
-"""CFAM decoder stack (cenet variant): CCU, SRM, MultiOrderDWConv, MCA, CFAModule.
+"""CFAM decoder stack: CCU, SRM, MultiOrderDWConv, MCA, CFAModule.
 
-Mirrors ``cenet_tpu/nn/cfam.py`` on NCHW tensors. The cenet_org flags
-(``pool_act='relu'``, ``attn_force_fp32``) and the GN/LN2d norms are later work.
+Mirrors ``cenet_tpu/nn/cfam.py`` on NCHW tensors, both reference variants: cenet
+(per-level ``mca_rates``, LeakyReLU(0.01) in the image-pool branch) and
+cenet_org (rates (6, 12, 18), ReLU pool branch, optional fp32 gating, and the
+reference's ``attn``/``crm`` names for ``mca``/``ccu``, ``org_names``).
 """
 
 from __future__ import annotations
@@ -14,19 +16,24 @@ import torch.nn as nn
 from cenet_tpu_torch.nn import functional as F
 from cenet_tpu_torch.nn.attention import Nonlocal
 from cenet_tpu_torch.nn.blocks import SepConvBN, _Slot
-from cenet_tpu_torch.nn.layers import BatchNorm, Conv2d, DropPath, Dropout, get_act
+from cenet_tpu_torch.nn.layers import BatchNorm, Conv1d, Conv2d, DropPath, Dropout, GroupNorm, LayerNorm2d, get_act
 
 
 def build_norm(norm_type: str, dim: int) -> nn.Module:
-    """Norm factory (reference ``cfam.py:22-32``); BN and SyncBN are one BatchNorm."""
-    if norm_type in ("BN", "SyncBN"):
-        return BatchNorm(dim, eps=1e-5)
-    raise NotImplementedError(f"norm {norm_type!r} is not ported yet (ported: 'BN')")
+    """Norm factory (reference ``cfam.py:22-32``): GN is a GroupNorm of one
+    channel a group, LN2d a LayerNorm over channels (eps 1e-6); anything else,
+    BN and SyncBN among them, one BatchNorm."""
+    if norm_type == "GN":
+        return GroupNorm(dim, dim, eps=1e-5)
+    if norm_type == "LN2d":
+        return LayerNorm2d(dim, eps=1e-6)
+    return BatchNorm(dim, eps=1e-5)
 
 
 class SRM(nn.Module):
     """Spatial recalibration (reference ``cfam.py:86-101``): channel max/mean/std maps
-    (unbiased std, fp32) → pwc + dwc → GELU → BN → sigmoid gate."""
+    (unbiased std, fp32; ``F.std_sqrt``: no NaN gradient where the channels are
+    equal) → pwc + dwc → GELU → BN → sigmoid gate."""
 
     def __init__(self):
         super().__init__()
@@ -39,7 +46,7 @@ class SRM(nn.Module):
         xf = x.float()
         x_max = xf.amax(dim=1, keepdim=True)
         x_mean = xf.mean(dim=1, keepdim=True)
-        x_std = torch.sqrt((xf - x_mean).square().sum(dim=1, keepdim=True) / max(c - 1, 1))
+        x_std = F.std_sqrt((xf - x_mean).square().sum(dim=1, keepdim=True) / max(c - 1, 1))
         u = torch.cat([x_max, x_mean, x_std], dim=1).to(x.dtype)
         f = self.bn(F.gelu(self.pwc(u) + self.dwc(u)))
         return x * torch.sigmoid(f)
@@ -81,13 +88,16 @@ class MultiOrderDWConv(nn.Module):
     """Dilated multi-branch DWConv + image pooling (reference ``cfam.py:162-241``).
 
     The channel split is hard-coded [5,5,5,1]/16 as in the reference; three dilated
-    SepConvBN branches and a 7×7 image-pool branch (1×1 conv → BN → LeakyReLU(0.01)
-    → ×7 bilinear align-corners, resized back on mismatch), concat → 1×1 conv.
+    SepConvBN branches and a 7×7 image-pool branch (1×1 conv → BN → ``pool_act``,
+    LeakyReLU(0.01) by default → ×7 bilinear align-corners, resized back on
+    mismatch), concat → 1×1 conv. A dilated branch's padding may exceed its map
+    (the org CFAM's rate 18 at 7² and 14²): zero padding, as in the reference.
     Torch keys: ``dlps.{0,1,2}``, pool branch ``dlps.3.1`` (conv), ``dlps.3.2`` (BN).
     """
 
-    def __init__(self, embed_dims: int, rates: Sequence[int] = (6, 12, 18)):
+    def __init__(self, embed_dims: int, rates: Sequence[int] = (6, 12, 18), pool_act: str = "leakyrelu_001"):
         super().__init__()
+        self.pool_act = (lambda x: F.leaky_relu(x, 0.01)) if pool_act == "leakyrelu_001" else get_act(pool_act)
         self.indices = _channel_indices(embed_dims, (5, 5, 5, 1))
         dlps = [
             SepConvBN(hi - lo, hi - lo, 3, stride=1, rate=rate, depth_activation=True, epsilon=1e-5)
@@ -105,7 +115,7 @@ class MultiOrderDWConv(nn.Module):
         lo, hi = self.indices[3]
         pool = self.dlps[3]
         p = F.adaptive_avg_pool2d(x[:, lo:hi], (7, 7))
-        p = F.leaky_relu(pool[2](pool[1](p)), 0.01)
+        p = self.pool_act(pool[2](pool[1](p)))
         p = F.resize_bilinear_by_scale(p, 7.0, align_corners=True)
         if p.shape[2] != H or p.shape[3] != W:
             p = F.resize_bilinear(p, (H, W), align_corners=False)
@@ -117,7 +127,10 @@ class CCU(nn.Module):
     """Style-based channel recalibration (reference ``cfam.py:244-264``).
 
     Per-channel (max, mean, biased std) → grouped Conv1d(k=3) → ReLU → grouped
-    Conv1d(k=1) → BatchNorm1d, skipped when the batch is 1 → sigmoid gate.
+    Conv1d(k=1) → BatchNorm1d, skipped when the batch is 1 → sigmoid gate. The
+    std is ``F.std_sqrt``'s: where a channel is constant over an image its
+    gradient is 0, not the NaN of ``sqrt`` at 0 (the JAX package's and the
+    reference's).
     Weights are in torch Conv1d layout (``fc1.weight`` (hs·C, 1, 3), ``fc2.weight`` (C, hs, 1)).
     """
 
@@ -125,8 +138,8 @@ class CCU(nn.Module):
         super().__init__()
         self.hs = hidden_scale
         # the reference's grouped Conv1d layers; forward reads their weights
-        self.fc1 = nn.Conv1d(channel, hidden_scale * channel, 3, groups=channel, bias=False)
-        self.fc2 = nn.Conv1d(hidden_scale * channel, channel, 1, groups=channel, bias=False)
+        self.fc1 = Conv1d(channel, hidden_scale * channel, 3, groups=channel, bias=False)
+        self.fc2 = Conv1d(hidden_scale * channel, channel, 1, groups=channel, bias=False)
         self.bn = BatchNorm(channel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -134,7 +147,7 @@ class CCU(nn.Module):
         xf = x.float()
         x_max = xf.amax(dim=(2, 3))
         x_mean = xf.mean(dim=(2, 3))
-        x_std = torch.sqrt((xf - x_mean[:, :, None, None]).square().mean(dim=(2, 3)))
+        x_std = F.std_sqrt((xf - x_mean[:, :, None, None]).square().mean(dim=(2, 3)))
         u = torch.stack([x_max, x_mean, x_std], dim=-1).to(x.dtype)  # (B, C, 3)
         w1 = self.fc1.weight.reshape(c, self.hs, 3).to(x.dtype)
         z1 = F.relu(torch.einsum("bct,cjt->bcj", u, w1))
@@ -147,36 +160,47 @@ class CCU(nn.Module):
 
 class MCA(nn.Module):
     """Multi-scale contextual aggregation (reference ``cfam.py:267-306``): CCU →
-    SiLU(gate)·SiLU(MultiOrderDWConv) → 1×1 proj → residual → Nonlocal denoising."""
+    SiLU(gate)·SiLU(MultiOrderDWConv) → 1×1 proj → residual → Nonlocal denoising.
+    ``attn_force_fp32`` multiplies the two activations in fp32 and casts back;
+    ``org_names`` keeps the CCU under the cenet_org reference's name ``crm``."""
 
     def __init__(self, embed_dims: int, rates: Sequence[int] = (2, 3, 4), attn_act_type: str = "silu",
-                 attn_impl: str = "xla"):
+                 attn_force_fp32: bool = False, pool_act: str = "leakyrelu_001", attn_impl: str = "xla",
+                 org_names: bool = False):
         super().__init__()
-        self.ccu = CCU(embed_dims)
+        self.ccu_name = "crm" if org_names else "ccu"
+        setattr(self, self.ccu_name, CCU(embed_dims))
         self.gate = Conv2d(embed_dims, embed_dims, 1)
-        self.value = MultiOrderDWConv(embed_dims, rates)
+        self.value = MultiOrderDWConv(embed_dims, rates, pool_act=pool_act)
         self.act = get_act(attn_act_type)
+        self.attn_force_fp32 = attn_force_fp32
         self.proj_2 = Conv2d(embed_dims, embed_dims, 1)
         self.denoising_module = Nonlocal(embed_dims, attn_impl=attn_impl)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
-        x = self.ccu(x)
-        x = self.proj_2(self.act(self.gate(x)) * self.act(self.value(x))) + shortcut
-        return self.denoising_module(x)
+        x = getattr(self, self.ccu_name)(x)
+        g, v = self.act(self.gate(x)), self.act(self.value(x))
+        gv = (g.float() * v.float()).to(x.dtype) if self.attn_force_fp32 else g * v
+        return self.denoising_module(self.proj_2(gv) + shortcut)
 
 
 class CFAModule(nn.Module):
     """CFAM block (reference ``cfam.py:309-374``): pre-norm MCA and pre-norm channel
-    MLP, each with a layer-scale residual (``layer_scale_{1,2}`` of shape (1, C, 1, 1))."""
+    MLP, each with a layer-scale residual (``layer_scale_{1,2}`` of shape (1, C, 1, 1)).
+    ``org_names`` keeps the MCA under the cenet_org reference's name ``attn``."""
 
     def __init__(self, embed_dims: int, ffn_ratio: float = 4.0, drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0, act_type: str = "gelu", norm_type: str = "BN",
                  init_value: float = 1e-5, attn_act_type: str = "silu",
-                 mca_rates: Sequence[int] = (6, 12, 18), attn_impl: str = "xla"):
+                 mca_rates: Sequence[int] = (6, 12, 18), attn_force_fp32: bool = False,
+                 pool_act: str = "leakyrelu_001", attn_impl: str = "xla", org_names: bool = False):
         super().__init__()
         self.norm1 = build_norm(norm_type, embed_dims)
-        self.mca = MCA(embed_dims, rates=mca_rates, attn_act_type=attn_act_type, attn_impl=attn_impl)
+        self.mca_name = "attn" if org_names else "mca"
+        setattr(self, self.mca_name, MCA(embed_dims, rates=mca_rates, attn_act_type=attn_act_type,
+                                         attn_force_fp32=attn_force_fp32, pool_act=pool_act, attn_impl=attn_impl,
+                                         org_names=org_names))
         self.norm2 = build_norm(norm_type, embed_dims)
         self.mlp = CAggMlp(embed_dims, int(embed_dims * ffn_ratio), 3, act_type, drop_rate)
         self.layer_scale_1 = nn.Parameter(torch.full((1, embed_dims, 1, 1), init_value))
@@ -184,7 +208,7 @@ class CFAModule(nn.Module):
         self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.mca(self.norm1(x))
+        y = getattr(self, self.mca_name)(self.norm1(x))
         x = x + self.drop_path(self.layer_scale_1.to(y.dtype) * y)
         y = self.mlp(self.norm2(x))
         return x + self.drop_path(self.layer_scale_2.to(y.dtype) * y)

@@ -194,6 +194,16 @@ def softmax_fp32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.softmax(x.float(), dim=dim).to(x.dtype)
 
 
+def std_sqrt(var: torch.Tensor) -> torch.Tensor:
+    """``torch.sqrt(var)`` of a variance (``var`` ≥ 0), equal to it in value,
+    whose gradient at ``var = 0`` is 0. There ``sqrt``'s own gradient is
+    ∞ · 0 = NaN, in the JAX package as in torch: a channel that a ReLU leaves
+    constant over an image (a ResNet's last stage, in dec4's CCU) turned every
+    gradient of the step into NaN. Elsewhere the gradient is sqrt's."""
+    live = var > 0
+    return torch.sqrt(torch.where(live, var, torch.ones_like(var))) * live
+
+
 def round_to(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype`` on the host.
 

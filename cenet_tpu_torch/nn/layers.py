@@ -4,13 +4,20 @@ Mirrors ``cenet_tpu/nn/layers.py``. Parameters live in fp32 under the reference
 torch names (``weight``, ``bias``, ``running_mean``, ``running_var``); compute
 runs in the input's dtype, with weights cast at use, except for the fp32
 islands the JAX package keeps: normalisation statistics (BatchNorm, LayerNorm,
-RMSNorm). Initialisation follows torch defaults: weights are meant to be
-carried over (``cenet_tpu_torch/convert``) or loaded from a reference ``.pth``.
+RMSNorm, GroupNorm).
+
+Initial weights follow the JAX package's initializers (``layers.py:38-96``).
+:class:`Conv2d`, :class:`ConvTranspose2d` and :class:`Linear` take the
+distribution of their weight and bias by name (``weight_init``,
+``bias_init``; :func:`draw_`), as the JAX layers take ``weight_init`` and
+``bias_init``, and draw it in ``reset_parameters(generator)``. Without a name
+they take the JAX layers' default, torch's U(±1/√fan_in).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import math
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -23,15 +30,97 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
     return None if t is None else t.to(dtype)
 
 
+# An initial distribution by name: "torch" (U(±1/√fan_in), the JAX layers'
+# default), "fan_out" (N(0, 2/fan_out), fan_out = kh·kw·O/groups: the reference's
+# PVT and ResNet conv init), "zeros", ("normal", std) or ("trunc_normal", std)
+# (JAX's truncated_normal: std times a standard normal cut at ±2, so its
+# standard deviation is 0.88·std).
+Init = Union[str, Tuple[str, float]]
+NORMAL = ("normal", 0.02)
+TRUNC_NORMAL = ("trunc_normal", 0.02)
+
+
+def draw_(t: torch.Tensor, init: Init, fan_in: int, fan_out: int, generator: Optional[torch.Generator]) -> None:
+    """Fill ``t`` in place from the distribution ``init`` names, from ``generator``."""
+    kind, std = (init, None) if isinstance(init, str) else init
+    with torch.no_grad():
+        if kind == "torch":
+            bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+            t.uniform_(-bound, bound, generator=generator)
+        elif kind == "fan_out":
+            t.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+        elif kind == "normal":
+            t.normal_(0.0, std, generator=generator)
+        elif kind == "trunc_normal":
+            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(std)
+        elif kind == "zeros":
+            t.zero_()
+        else:
+            raise ValueError(f"unknown initializer {init!r}")
+
+
 class Conv2d(nn.Conv2d):
-    """torch ``nn.Conv2d`` whose fp32 weight and bias are cast to the input's dtype."""
+    """torch ``nn.Conv2d`` whose fp32 weight and bias are cast to the input's dtype,
+    drawn from ``weight_init`` and ``bias_init``."""
+
+    def __init__(self, *args, weight_init: Init = "torch", bias_init: Init = "torch", **kw):
+        self.weight_init, self.bias_init = weight_init, bias_init
+        super().__init__(*args, **kw)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        kh, kw = self.kernel_size
+        fan_in = self.in_channels // self.groups * kh * kw
+        draw_(self.weight, self.weight_init, fan_in, kh * kw * self.out_channels // self.groups, generator)
+        if self.bias is not None:
+            draw_(self.bias, self.bias_init, fan_in, 0, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """torch ``nn.ConvTranspose2d`` (``output_padding`` included), weight (I, O, kh, kw),
+    cast at use like :class:`Conv2d`. Its default weight init takes the JAX layer's
+    fan_in, kh·kw·I (``cenet_tpu/nn/layers.py:199``), and its bias kh·kw·O, torch's."""
+
+    def __init__(self, *args, weight_init: Init = "torch", **kw):
+        self.weight_init = weight_init
+        super().__init__(*args, **kw)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        kh, kw = self.kernel_size
+        draw_(self.weight, self.weight_init, kh * kw * self.in_channels, kh * kw * self.out_channels, generator)
+        if self.bias is not None:
+            draw_(self.bias, "torch", kh * kw * self.out_channels, 0, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tF.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype), self.stride, self.padding,
+                                   self.output_padding, self.groups, self.dilation)
+
+
+class Conv1d(nn.Conv1d):
+    """torch ``nn.Conv1d`` with torch's default init drawn from a generator (the
+    CCU's grouped weights; ``cenet_tpu/nn/cfam.py::_conv1d_init``)."""
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        fan_in = self.in_channels // self.groups * self.kernel_size[0]
+        draw_(self.weight, "torch", fan_in, 0, generator)
+        if self.bias is not None:
+            draw_(self.bias, "torch", fan_in, 0, generator)
+
+
 class Linear(nn.Linear):
-    """torch ``nn.Linear`` (the JAX package's ``Dense``), cast at use like :class:`Conv2d`."""
+    """torch ``nn.Linear`` (the JAX package's ``Dense``), cast at use like
+    :class:`Conv2d`, drawn from ``weight_init`` and ``bias_init``."""
+
+    def __init__(self, *args, weight_init: Init = "torch", bias_init: Init = "torch", **kw):
+        self.weight_init, self.bias_init = weight_init, bias_init
+        super().__init__(*args, **kw)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        draw_(self.weight, self.weight_init, self.in_features, self.out_features, generator)
+        if self.bias is not None:
+            draw_(self.bias, self.bias_init, self.in_features, 0, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return tF.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
@@ -107,6 +196,33 @@ class RMSNorm(nn.Module):
         if self.weight is not None:
             y = y * self.weight
         return y.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """torch ``nn.GroupNorm`` over dim 1 with fp32 statistics (``cenet_tpu/nn/layers.py::GroupNorm``)."""
+
+    def __init__(self, num_groups: int, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        xf = x.float().reshape(b, self.num_groups, -1)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
+class LayerNorm2d(LayerNorm):
+    """The reference's channels-first LayerNorm2d (``modules/cfam.py:57-83``): a
+    LayerNorm over dim 1 of NCHW maps (the JAX package's LayerNorm on NHWC)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.movedim(1, -1)).movedim(-1, 1)
 
 
 class _RandomMask(nn.Module):

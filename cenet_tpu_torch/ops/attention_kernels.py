@@ -30,7 +30,10 @@ K1, K3, K5, K6 and K7, where K5 is K1's kernel on the split head views, K7 K3's
 kernels with its own dv rounding and K6 K3's dq kernel that also adds each key
 tile's dk and dv partials), fp32 on CUDA cores in fp32 FMA
 (``csrc/attention_{fwd,bwd}_common.cuh``), because the tensor cores take fp32
-only as TF32. Both keep the Pallas bodies' rounding points.
+only as TF32. Both keep the Pallas bodies' rounding points. K2 and K4 take head dims up
+to 512 (the other kernels 128): past 128 they launch the wide designs of
+``csrc/attention_wide.cuh`` in both dtypes (d and dv in 128-column chunks, one
+128-column slice of each output a block).
 
 :class:`DiffAttentionInterleavedFn`, :class:`DiffAttentionFn` and
 :class:`AttentionFn` pair each routed forward kernel with its backward, as the
@@ -62,6 +65,7 @@ from cenet_tpu_torch.ops import binding
 from cenet_tpu_torch.ops.binding import LAUNCHES, reset_launches  # noqa: F401  (public names of this module)
 
 _MAX_D, _MAX_DV = 128, 128  # csrc/attention_fwd_common.cuh: MAX_D, MAX_DV
+_MAX_WIDE = 512  # K2 and K4 (attention_fwd, attention_bwd): csrc/attention_wide.cuh, wide::MAX_DIM
 
 _P, _I, _L = binding.P, binding.I, binding.L
 # C signatures (csrc/*.cu): is_bf16, pointers, B, H, N, M, D, DV, 3 strides per
@@ -204,9 +208,12 @@ def _check_shapes(name: str, expected: dict) -> None:
         raise ValueError(f"{name}: shapes {got} do not fit")
 
 
-def _check_head_dims(name: str, d: int, dv: int) -> None:
-    if d > _MAX_D or dv > _MAX_DV:
-        raise ValueError(f"{name}: head dims d={d}, dv={dv} exceed the kernel's {_MAX_D}, {_MAX_DV}")
+def _check_head_dims(name: str, d: int, dv: int, wide: bool = False) -> None:
+    """K2 and K4 (``wide``) take d, dv ≤ 512, the other attention kernels ≤ 128."""
+    max_d, max_dv = (_MAX_WIDE, _MAX_WIDE) if wide else (_MAX_D, _MAX_DV)
+    if d > max_d or dv > max_dv:
+        raise ValueError(f"{name}: head dims d={d}, dv={dv} exceed the kernel's {max_d}, {max_dv} "
+                         "(wider heads are ROADMAP queue 1 item 13)")
 
 
 def _device_lam(name: str, lam: torch.Tensor) -> torch.Tensor:
@@ -298,7 +305,8 @@ def diff_attention_fwd(q1, k1, q2, k2, v, lam):
 
 
 def attention_fwd(q, k, v):
-    """softmax(q·kᵀ)·v with q pre-scaled: q, k ``(B, H, N|M, d)``, v ``(B, H, M, dv)``.
+    """softmax(q·kᵀ)·v with q pre-scaled: q, k ``(B, H, N|M, d)``, v ``(B, H, M, dv)``,
+    d, dv ≤ 512 (past 128 the wide designs of ``csrc/attention_wide.cuh``).
     Returns ``(o (B, H, N, dv), lse (B, H, N))``."""
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v)
@@ -307,7 +315,7 @@ def attention_fwd(q, k, v):
     b, hh, n, d = q.shape
     m, dv = k.shape[2], v.shape[3]
     _check_shapes(name, {"q": (q, q.shape), "k": (k, (b, hh, m, d)), "v": (v, (b, hh, m, dv))})
-    _check_head_dims(name, d, dv)
+    _check_head_dims(name, d, dv, wide=True)
     o = torch.empty((b, hh, n, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hh, n), dtype=torch.float32, device=q.device)
     rc = _kernel("attention_fwd", "cenet_attention_fwd")(
@@ -420,7 +428,7 @@ def _attention_bwd(name, source, symbol, fused, q, k, v, o, lse, do):
     m, dv = k.shape[2], v.shape[3]
     _check_shapes(name, {"q": (q, q.shape), "k": (k, (b, hh, m, d)), "v": (v, (b, hh, m, dv)),
                          "o": (o, (b, hh, n, dv)), "do": (do, (b, hh, n, dv))})
-    _check_head_dims(name, d, dv)
+    _check_head_dims(name, d, dv, wide=not fused)
     (lse,) = _row_stats(name, (b, hh, n), lse)
     delta = (do.float() * o.float()).sum(-1).contiguous()
     dq = (torch.zeros((b, hh, n, d), dtype=torch.float32, device=q.device) if fused
@@ -439,7 +447,7 @@ def _attention_bwd(name, source, symbol, fused, q, k, v, o, lse, do):
 def attention_bwd(q, k, v, o, lse, do):
     """Gradients of :func:`attention_fwd` (K4, a dq and a dk/dv kernel): ``o`` its
     output, ``lse`` its fp32 row log-sum-exp, ``do`` the gradient of ``o``.
-    Returns ``(dq, dk, dv)``."""
+    Takes d, dv ≤ 512, as :func:`attention_fwd` does. Returns ``(dq, dk, dv)``."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do)
     return _attention_bwd("attention_bwd", "attention_bwd", "cenet_attention_bwd", False, q, k, v, o, lse, do)
@@ -448,7 +456,7 @@ def attention_bwd(q, k, v, o, lse, do):
 def attention_bwd_fused(q, k, v, o, lse, do):
     """:func:`attention_bwd`'s function in one launch (K8): dq is summed over key
     tiles with fp32 atomics, so repeat runs differ in its last bits. Its twin is
-    :func:`attention_bwd_plain`, as for K4."""
+    :func:`attention_bwd_plain`, as for K4. Takes d, dv ≤ 128 (no router calls it)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do)
     return _attention_bwd("attention_bwd_fused", "attention_bwd_fused", "cenet_attention_bwd_fused", True,

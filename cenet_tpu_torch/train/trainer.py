@@ -16,8 +16,9 @@ and losses, and threads the BatchNorm statistics from one microbatch to the
 next, as the JAX step's ``lax.scan`` does (``:166-183``). ``eval_step`` is
 the JAX ``trainer.eval_step`` over ``evaluate/predict.py::make_predict_fn``.
 ``state_dict``/``load_state_dict`` carry the whole train state, which
-``core/checkpoint.py`` saves and restores. ``CENetOrg`` is not ported, so
-``model_version='cenet_org'`` raises (``build_model``).
+``core/checkpoint.py`` saves and restores. The model is ``build_model``'s:
+CENet or, with ``model_version='cenet_org'``, CENetOrg, on any encoder;
+``freeze_bb`` freezes its ``backbone`` (PVT or ResNet).
 """
 
 from __future__ import annotations

@@ -39,7 +39,7 @@ def test_unknown_attention_impl_raises_as_in_jax(impl):
 
 @pytest.mark.parametrize("impl", ["ring", "ring@seq", "pallas@model", "xla@model", "chunked@model"])
 def test_ring_and_axis_impls_are_not_ported(impl):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         tatt.get_attention_core(impl)
 
 

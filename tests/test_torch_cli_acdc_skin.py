@@ -5,7 +5,7 @@ acdc|ph2`` runs here with ``--device cpu`` on the slim model (CENet with
 pvt_v2_b0 at 64 px, fp32, drop-path 0: the preset with its encoder, image
 size, precision and drop-path cut) over seeded synthetic data
 (``cenet_tpu_torch/tools/synthetic.py``): ACDC for two epochs over eight 80 × 72 train slices
-at batch 2 (four iterations an epoch, stacked by ``steps_per_call``), two
+at batch 2 (four iterations an epoch, stacked by ``steps_per_call``; lr 0.5), two
 valid slices and one 3-slice test volume; PH2 for one epoch over a 104-image
 ``np/`` cache (80 train at batch 8, 20 val, 4 test). One run of each serves:
 
@@ -67,10 +67,17 @@ def _slim_preset(get_preset):
     return preset
 
 
+# ACDC's run trains at lr 0.5: from the JAX package's initial weights (small
+# truncated normals in the heads) the slim model predicts no foreground in its
+# first epochs at the preset's 0.01 (val dice 0 through epoch 5 of 8), so the
+# cascade would never run a test; at 0.5 its val dice rises at epoch 1
+ARGS = {"acdc": ("--base_lr", "0.5"), "ph2": ()}
+
+
 def _argv(mode, preset, root, out, *extra):
     return [mode, "--preset", preset, "--encoder", ENCODER, "--device", "cpu", "--no-amp", "--root_path", str(root),
             "--list_dir", str(root), "--output_dir", str(out), "--max_epochs", str(EPOCHS[preset]), "--batch_size",
-            str(BATCH[preset]), *extra]
+            str(BATCH[preset]), *ARGS[preset], *extra]
 
 
 def _run(argv):

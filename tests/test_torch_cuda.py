@@ -11,7 +11,10 @@ edges of 64-row tiles and of 16-deep steps (N, M of 1, 63, 65, 127, 129, 196,
 (64, 128) at 784 and 3136 tokens for K1 and K3), the
 strided views that the DSEB projections and ``Nonlocal`` hand over, and
 bit-identity checks of K1, K3 and K7 (δ and dλ included), K4, K6's dq, δ and
-dλ, and K8's dk and dv. Limits in max-abs
+dλ, and K8's dk and dv. K2 and K4 also at head dims past 128 (their wide
+designs, d and dv up to 512: the ResNet-50 Nonlocal sites and ragged chunks),
+with their repeat-run bit-identity, and the router sending ResNet-50's dec1
+Nonlocal to K2 and K4. Limits in max-abs
 and in norm: fp32 1e-4 of max |grad| and 1e-5 in norm (only the order of
 summation differs); bf16 two bf16 half-ulps of max |grad| (2·2^-8 in norm) plus
 the twin's own cost of rounding ds and p (or w) to bf16, measured the same way.
@@ -313,6 +316,89 @@ def test_cuda_diff_kernels_repeat_bit_identical(cuda):
         for a, b_ in zip((*first, *grads[0], *deltas[0]), (*again, *grads[1], *deltas[1])):
             assert torch.equal(a, b_), (b, n, h, d)
         assert torch.equal(grads[0][3], -deltas[0][4].sum())
+
+
+# K2 and K4 past 128 (the wide designs, csrc/attention_wide.cuh): the ResNet-50
+# Nonlocal sites (dec1 56² at d = dv = 256, dec2 28² at 512), ragged chunks of
+# d and dv (200, 300, 136, 130 against the 128-column chunks), ragged N and M,
+# and a narrow dv beside a wide d
+WIDE_ATTN_SHAPES = [(1, 1, 3136, 3136, 256, 256), (2, 1, 784, 784, 512, 512), (1, 1, 130, 70, 200, 300),
+                    (1, 2, 65, 63, 512, 136), (1, 1, 1, 65, 130, 16), (2, 1, 100, 129, 16, 260)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wide_attention_kernels_match_twins(cuda, dtype):
+    """K2 and K4 at head dims past 128 against their twins, with the limits of
+    the narrow kernels; the token views of a one-head Nonlocal at d = 256 too."""
+    g = torch.Generator().manual_seed(11)
+    cases = [[(torch.randn(b, h, n, d, generator=g) * d**-0.5).to(cuda, dtype),
+              torch.randn(b, h, m, d, generator=g).to(cuda, dtype), torch.randn(b, h, m, dv, generator=g).to(cuda, dtype),
+              torch.randn(b, h, n, dv, generator=g).to(cuda, dtype)] for b, h, n, m, d, dv in WIDE_ATTN_SHAPES]
+    cases.append(list(_token_views(g, 2, 1, 196, 256, dtype, cuda)))
+    for q, k, v, do in cases:
+        where = (tuple(q.shape), tuple(v.shape))
+        f = [t.float().contiguous() for t in (q, k, v, do)]
+        o, lse = K.attention_fwd(q, k, v)
+        want = K.attention_fwd_plain(f[0], f[1], f[2])
+        want_w = K.attention_fwd_plain(f[0], f[1], v.contiguous())[0]
+        got = K.attention_bwd(q, k, v, o, lse, do)
+        want_b = K.attention_bwd_plain(f[0], f[1], f[2], o.float(), lse, f[3])
+        want_r = (K.attention_bwd_plain(f[0], k, f[2], o, lse, do)[0],
+                  K.attention_bwd_plain(q, f[1], f[2], o, lse, do)[1],
+                  K.attention_bwd_plain(f[0], f[1], f[2], o, lse, do)[2])
+        torch.cuda.synchronize()
+        assert (o.float() - want[0]).abs().max() <= _o_limit(dtype, want[0], want_w), where
+        assert (lse - want[1]).abs().max() <= 1e-4, where
+        _assert_grads(got, want_b, want_r, dtype, where)
+
+
+@pytest.mark.cuda
+def test_cuda_wide_attention_repeats_and_limits(cuda):
+    """The wide K2 and K4 in bf16 repeat to the bit (each output element from one
+    block); past 512 both raise, naming the ROADMAP item."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v, do = _token_views(g, 2, 1, 784, 512, torch.bfloat16, cuda)
+    o, lse = K.attention_fwd(q, k, v)
+    o2, lse2 = K.attention_fwd(q, k, v)
+    first, again = K.attention_bwd(q, k, v, o, lse, do), K.attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
+    big = torch.zeros(1, 1, 8, 520, device=cuda)
+    with pytest.raises(ValueError, match="item 13"):
+        K.attention_fwd(big, big, big)
+    with pytest.raises(ValueError, match="item 13"):
+        K.attention_bwd(big, big, big, big, torch.zeros(1, 1, 8, device=cuda), big)
+
+
+@pytest.mark.cuda
+def test_cuda_router_sends_resnet50_dec1_nonlocal_to_k2(cuda, monkeypatch):
+    """A Nonlocal block at ResNet-50's dec1 (C = 256 at 56², a 39 MB map per
+    image, above the router's 32 MiB) reaches K2 on the card, and K4 when
+    autograd records; fp32 output and gradients agree with the CPU's plain path
+    (cuDNN's TF32 off for the block's output conv)."""
+    from cenet_tpu_torch.nn.attention import Nonlocal
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    torch.manual_seed(0)
+    cpu = Nonlocal(256, attn_impl="pallas").eval()
+    card = Nonlocal(256, attn_impl="pallas").eval()
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda)
+    x = torch.randn(1, 256, 56, 56, generator=torch.Generator().manual_seed(1))
+    xc = x.to(cuda).requires_grad_()
+    xh = x.clone().requires_grad_()
+    K.reset_launches()
+    out = card(xc)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["attention_fwd"] == 1 and K.LAUNCHES["attention_bwd"] == 1
+    want = cpu(xh)
+    want.square().sum().backward()
+    assert (out.detach().cpu() - want.detach()).abs().max() <= 1e-4 * max(1.0, float(want.abs().max()))
+    assert (xc.grad.cpu() - xh.grad).abs().max() <= 1e-4 * max(1.0, float(xh.grad.abs().max()))
 
 
 @pytest.mark.cuda

@@ -75,6 +75,35 @@ def test_acdc_and_skin_modules_import_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+ZOO_MODULES = ["models.resnet", "models.encoder", "models.decoder", "models.cenet", "nn.layers", "nn.blocks",
+               "nn.cfam", "nn.dseb", "nn.attention"]
+
+
+def test_model_zoo_modules_import_no_jax():
+    """The model zoo's modules (ResNet, the org decoder and model, the new
+    blocks and layers), imported together in one process, import neither JAX
+    nor the JAX package."""
+    code = ("import sys; " + "; ".join(f"import cenet_tpu_torch.{m}" for m in ZOO_MODULES) + "; print(sorted(m "
+            "for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cenet_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("version,encoder", [("cenet_org", "pvt_v2_b0"), ("cenet", "resnet50")])
+def test_zoo_models_default_to_the_card(monkeypatch, version, encoder):
+    """``build_model`` builds CENetOrg and the ResNet encoders for the card unless
+    asked for the CPU: without a card it raises, it does not fall back."""
+    import dataclasses
+
+    cfg = get_preset("synapse")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, model_version=version, encoder=encoder))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    assert next(build_model(cfg, device="cpu", seed=0).parameters()).device.type == "cpu"
+
+
 def test_cpu_tensors_never_touch_the_build_in_the_new_ops(monkeypatch):
     """K9–K12's wrappers and Functions take their twins for CPU tensors."""
     from cenet_tpu_torch.ops import depthwise, rms_norm, rotary, smallc_conv

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from cenet_tpu_torch.convert.jax2torch import state_dict_from_jax
+from cenet_tpu_torch.convert.jax2torch import _flatten, state_dict_from_jax, torch_key_for
 
 # The port's tests run at small sizes, often beside the JAX suite in parallel
 # pytest workers on shared cores. One intra-op thread keeps torch's OpenMP pool
@@ -65,6 +65,34 @@ def load_port(port_module, variables, wrap="m", strip=None, model_version="cenet
     assert all(k.startswith(prefix) for k in sd), (prefix, list(sd)[:3])
     port_module.load_state_dict({k[len(prefix):]: v for k, v in sd.items()}, strict=True)
     return port_module.eval()
+
+
+def variables_from_port(model, template, model_version="cenet"):
+    """The port model's weights as JAX variables of ``template``'s tree (numpy
+    leaves, e.g. from ``jax.eval_shape``): each leaf named with the port's
+    ``torch_key_for`` and put back into the JAX layout. The inverse of
+    ``state_dict_from_jax``; unlike the JAX package's ``convert_state_dict`` it
+    takes the ResNet backbone's torchvision keys."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    siblings = {}
+    for c in template:
+        for path, _ in _flatten(template[c]):
+            for j in range(len(path)):
+                siblings.setdefault("/".join(path[:j]), set()).add(path[j])
+    out = {}
+    for c in template:
+        tree = out.setdefault(c, {})
+        for path, leaf in _flatten(template[c]):
+            t = sd[torch_key_for(path, c, model_version, siblings)]
+            if t.ndim == 4:
+                t = t.transpose(2, 3, 0, 1) if path[-2] in ("up", "transp_conv") else t.transpose(2, 3, 1, 0)
+            elif t.ndim == 2 and path[-1] == "weight":
+                t = t.T
+            d = tree
+            for k in path[:-1]:
+                d = d.setdefault(k, {})
+            d[path[-1]] = np.array(t.reshape(np.shape(leaf)), dtype=np.asarray(leaf).dtype, order="C")  # 0-d kept
+    return out
 
 
 def nchw(x_nhwc):
