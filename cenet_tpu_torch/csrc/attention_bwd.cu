@@ -24,7 +24,9 @@
 //         kernel's 1e-4 agreement with its twin.
 
 // Head dims past 128 (d, dv <= 512: the Nonlocal sites of the ResNet-50/101/152
-// encoders) run the wide designs of attention_wide.cuh in both dtypes.
+// encoders) run the wide designs of attention_wide.cuh: bf16 a dq and a dk/dv
+// kernel on wgmma (each S and dP formed once per pair of tiles, no atomics),
+// fp32 on CUDA cores.
 
 #include "attention_bwd_common.cuh"
 #include "attention_tc.cuh"

@@ -19,7 +19,10 @@
 //         break the fp32 kernel's 1e-4 agreement with its twin.
 
 // Head dims past 128 (d, dv <= 512: the Nonlocal sites of the ResNet-50/101/152
-// encoders) run the wide designs of attention_wide.cuh in both dtypes.
+// encoders) run the wide designs of attention_wide.cuh: bf16 on wgmma (the
+// row-owning forward at d, dv <= 256 with every operand on TMA, else the split
+// design), fp32 on CUDA cores. wgmma_ptx.cuh holds their Hopper PTX; the
+// source builds for sm_90a like the others.
 
 #include "attention_fwd_common.cuh"
 #include "attention_tc.cuh"

@@ -32,7 +32,10 @@ tile's dk and dv partials), fp32 on CUDA cores in fp32 FMA
 (``csrc/attention_{fwd,bwd}_common.cuh``), because the tensor cores take fp32
 only as TF32. Both keep the Pallas bodies' rounding points. K2 and K4 take head dims up
 to 512 (the other kernels 128): past 128 they launch the wide designs of
-``csrc/attention_wide.cuh`` in both dtypes (d and dv in 128-column chunks, one
+``csrc/attention_wide.cuh``: bf16 on Hopper's ``wgmma`` (PTX in
+``csrc/wgmma_ptx.cuh``; TMA loads where the operands are 16-byte aligned,
+``cp.async`` otherwise), each logit formed once a pass for all output columns
+of its rows, fp32 on CUDA cores (d and dv in 128-column chunks, one
 128-column slice of each output a block).
 
 :class:`DiffAttentionInterleavedFn`, :class:`DiffAttentionFn` and
@@ -306,7 +309,8 @@ def diff_attention_fwd(q1, k1, q2, k2, v, lam):
 
 def attention_fwd(q, k, v):
     """softmax(q·kᵀ)·v with q pre-scaled: q, k ``(B, H, N|M, d)``, v ``(B, H, M, dv)``,
-    d, dv ≤ 512 (past 128 the wide designs of ``csrc/attention_wide.cuh``).
+    d, dv ≤ 512 (past 128 the wide designs of ``csrc/attention_wide.cuh``, bf16 on
+    ``wgmma``).
     Returns ``(o (B, H, N, dv), lse (B, H, N))``."""
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v)

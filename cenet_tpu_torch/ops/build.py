@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). Libraries go
 to ``cenet_tpu_torch/_build/<hash>/``, keyed on a hash of every source and the
-flags, so the first use after a change rebuilds and later uses load. Nothing
-here runs at import time; a missing ``nvcc`` or a failed build raises.
+flags, so the first use after a change rebuilds and later uses load. ``ptxas``
+reports each kernel's registers, spills and shared memory into
+``lib<name>.log`` beside the library (:func:`ptxas_usage`). Nothing here runs
+at import time; a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -21,7 +24,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -65,6 +69,7 @@ def build(names: Iterable[str]) -> Path:
             os.unlink(tmp)
             failures.append(f"{n}.cu:\n{log}")
         else:
+            (out / f"lib{n}.log").write_text(log)
             os.replace(tmp, out / f"lib{n}.so")  # atomic: a reader never sees a partial file
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
@@ -79,3 +84,27 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name]) / f"lib{name}.so"))
             _libs[name] = lib
         return lib
+
+
+_USAGE = re.compile(r"Compiling entry function '(\S+)'|(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads|Used (\d+) registers")
+
+
+def ptxas_usage(name: str, pattern: str = "") -> Dict[str, Dict[str, int]]:
+    """``ptxas -v``'s report for the kernels of ``csrc/<name>.cu`` whose mangled
+    names contain ``pattern``: registers a thread and spill stores and loads in
+    bytes, by kernel (built first if needed)."""
+    with _lock:
+        log = (build([name]) / f"lib{name}.log").read_text()
+    out: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for m in _USAGE.finditer(log):
+        if m.group(1):
+            kernel = m.group(1) if pattern in m.group(1) else None
+            if kernel:
+                out[kernel] = {}
+        elif kernel and m.group(2):
+            out[kernel].update(spill_stores=int(m.group(3)), spill_loads=int(m.group(4)))
+        elif kernel and m.group(5):
+            out[kernel]["registers"] = int(m.group(5))
+    return out

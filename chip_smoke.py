@@ -17,7 +17,9 @@ runs K10. Phases:
 1. print the card's name and power limit, read its SM count and maximum SM
    clock (the special-function units' rate of exponentials, for each attention
    kernel's ``exp_ms``), and build every kernel of both paths from
-   ``cenet_tpu_torch/csrc`` (one ``nvcc`` per source, all in parallel);
+   ``cenet_tpu_torch/csrc`` (one ``nvcc`` per source, all in parallel),
+   printing ``ptxas``'s registers and spills of the wide K2/K4's wgmma kernel
+   instances;
 2. hold each forward kernel (K1, K2, K5) against its plain PyTorch twin at
    every main-path shape (batch 2; fp32 with TF32 off and bf16), then at a
    32-slice chunk in bf16 (against the twin in slices of 2), K5 also against
@@ -27,13 +29,16 @@ runs K10. Phases:
    presets' DSEB1 and DSEB2 head dims (``DIFF_SITES`` tagged ``acdc`` and
    ``skin``: d, dv = 16, 32 and 32, 64; 32, 64 and 64, 128), and K2 at a
    ResNet-50 CENet's Nonlocal sites (``ATTN_SITES`` tagged ``resnet50``: dec1
-   at 56² with d = dv = 256, dec2 at 28² with 512, the wide designs), with
-   their device time and the backend SDPA picks there; then time plain math
+   at 56² with d = dv = 256, dec2 at 28² with 512, the wide wgmma designs),
+   with their device time, the backend SDPA picks there and SDPA's device time
+   (the loss factor device against device); then time plain math
    (``router.plain_attention``) against K2 in bf16 at dec1's head dims for
    maps of 8–64 MB, where the router's 32 MB rule draws its line;
    2b. the same for the backward kernels (K3, K4 at every site; K6, K7 at the
    DSEB sites and K8 at the dec1 site that training routes; K4 also at
-   ResNet-50's dec1, wide, by device time too) on their gradients,
+   ResNet-50's dec1, wide, by device time too, beside SDPA's backward by
+   device time: a graph of its forward and backward less one of its forward)
+   on their gradients,
    in max-abs and in norm, and dλ for the diff kernels, at batch 2; at the
    training batch of 8, forward and backward kernels in fp32 and bf16 against
    the twins in slices of 2, the backward's times in bf16 (K3 also by device
@@ -597,6 +602,8 @@ def phase_kernels(exp_rate):
             row["device_roofline_share"] = row["bound_ms"] / row["device_ms"]
         if wide_site(kernel, site):
             row["library_backend"] = sdpa_backend(library_fn(kernel, args))
+            row["library_device_ms"] = graph_ms(lambda *a: library_fn(kernel, a)(), rotated(args))
+            row["device_loss_factor"] = row["device_ms"] / row["library_device_ms"]
         row["exp_ms"] = exp_count(kernel, CHUNK, h, n) / exp_rate * 1e3
         del args, args2
         torch.cuda.empty_cache()
@@ -753,6 +760,21 @@ def bwd_library_fn(kernel, call):
     return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
 
 
+def bwd_library_device_ms(call):
+    """Device time of SDPA's backward on K4's inputs (``call``): a graph of its
+    forward and backward less a graph of its forward (``graph_ms``; a backward
+    alone cannot be captured apart from the forward that records it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, do = call[0], call[1], call[2], call[-1]
+
+    def both(q, k, v, do):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(sdpa(*leaves, scale=1.0), leaves, do)
+
+    return (graph_ms(both, rotated((q, k, v, do)))
+            - graph_ms(lambda q, k, v: sdpa(q, k, v, scale=1.0), rotated((q, k, v))))
+
+
 def bwd_bound(kernel, b, h, n, d, dv, itemsize):
     """(ms for the operations, ms for the bytes) of the least backward work:
     FLOPs 2·N·M·(6d + 2dv) per head pair for the diff kernels (s₁, s₂, G, dq₁₂,
@@ -867,6 +889,8 @@ def phase_bwd_kernels(exp_rate):
             if wide_site(kernel, site):
                 # the forward that builds the graph picks the backend: run both under the test
                 row["library_backend"] = sdpa_backend(lambda: bwd_library_fn(kernel, call)())
+                row["library_device_ms"] = bwd_library_device_ms(call)
+                row["device_loss_factor"] = row["device_ms"] / row["library_device_ms"]
             row["exp_ms"] = exp_count(kernel, TRAIN_B, h, n) / exp_rate * 1e3
             del args, call
             torch.cuda.empty_cache()
@@ -1357,6 +1381,7 @@ def phase_split_volume():
 # dw3x3_dw_plane_kernel otherwise, counted by route in depthwise.DW_ROUTES;
 # the ordered sum in the launch); K10's vectorised rotary (csrc/rotary.cu)
 KERNEL_DESIGNS = {"fwd_tc": r"attention_fwd_tc_kernel<", "bwd_dq_tc": r"attention_bwd_dq_tc_kernel<",
+                  "wide_wgmma": r"attention_(wide_wgmma|fwd_rows)_kernel<",
                   "bwd_dkv_tc": r"attention_bwd_dkv_tc_kernel<",
                   "bwd_fused_tc": r"attention_bwd_fused_tc_kernel<",
                   "fwd_cuda_core": r"attention_fwd_kernel<1,",
@@ -3045,6 +3070,25 @@ def phase_zoo(version, encoder, tag, n_slices=24):
     return launches
 
 
+def wide_ptxas():
+    """``ptxas``'s registers a thread and spills (bytes) of each instance of the
+    wide K2/K4's wgmma kernels, by kernel and output columns a warpgroup: the
+    split design's fwd, dq and dkv roles and the row-owning forward (whose
+    consumers take 240 registers by setmaxnreg beyond the launch's 168)."""
+    roles = ("fwd", "dq", "dkv")
+    out = {}
+    for source in ("attention_fwd", "attention_bwd"):
+        for name, usage in build.ptxas_usage(source, "attention_").items():
+            m = re.search(r"attention_wide_wgmma_kernelILNS0_4WideE(\d)ELi(\d+)E", name)
+            r = re.search(r"attention_fwd_rows_kernelILi(\d+)E", name)
+            if m:
+                out[f"{roles[int(m.group(1))]} H={m.group(2)}"] = usage
+            elif r:
+                out[f"fwd rows NV={r.group(1)}"] = usage
+    check(len(out) == 13, f"wide wgmma kernels: expected ptxas reports of 4 + 4 fwd, 4 dq and 1 dkv instances: {out}")
+    return out
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -3056,6 +3100,7 @@ def main():
     build.build(sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": sources, "dir": str(build._build_dir()),
           "sm_count": sms, "max_sm_clock_mhz": mhz, "ex2_per_s": exp_rate})
+    emit({"phase": "ptxas", "wide_wgmma": wide_ptxas()})
 
     launches = {}
     sites, errs = phase_kernels(exp_rate)
@@ -3114,8 +3159,9 @@ def main():
         return preset_of(r["site"]) == "synapse"
 
     def preset_sites(rows):
-        keys = ("site", "ms", "device_ms", "plain_ms", "library_ms", "library_backend", "bound_ms", "bound_by",
-                "roofline_share", "device_roofline_share", "repeat_bit_identical")
+        keys = ("site", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "library_backend",
+                "bound_ms", "bound_by", "roofline_share", "device_roofline_share", "device_loss_factor",
+                "repeat_bit_identical")
         return [{k: r[k] for k in keys if k in r} for r in rows if not synapse(r)]
 
     records = [record(name, spec, [r for r in sites if r["kernel"] == name and synapse(r)], errs[name])

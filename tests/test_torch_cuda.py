@@ -318,24 +318,30 @@ def test_cuda_diff_kernels_repeat_bit_identical(cuda):
         assert torch.equal(grads[0][3], -deltas[0][4].sum())
 
 
-# K2 and K4 past 128 (the wide designs, csrc/attention_wide.cuh): the ResNet-50
-# Nonlocal sites (dec1 56² at d = dv = 256, dec2 28² at 512), ragged chunks of
-# d and dv (200, 300, 136, 130 against the 128-column chunks), ragged N and M,
-# and a narrow dv beside a wide d
+# K2 and K4 past 128 (the wgmma designs, csrc/attention_wide.cuh): the ResNet-50
+# Nonlocal sites (dec1 56² at d = dv = 256, dec2 28² at 512), ragged widths
+# (200, 300, 136, 130 against the 64-column tiles and 128-column chunks), N and
+# M just past a 64-row own tile and a 128-row streamed tile, a narrow dv beside
+# a wide d and the widest dv (512) beside d = 16, whose dk/dv kernel runs two
+# column slices
 WIDE_ATTN_SHAPES = [(1, 1, 3136, 3136, 256, 256), (2, 1, 784, 784, 512, 512), (1, 1, 130, 70, 200, 300),
-                    (1, 2, 65, 63, 512, 136), (1, 1, 1, 65, 130, 16), (2, 1, 100, 129, 16, 260)]
+                    (1, 2, 65, 63, 512, 136), (1, 1, 1, 65, 130, 16), (2, 1, 100, 129, 16, 260),
+                    (1, 1, 65, 129, 256, 256), (1, 1, 129, 65, 200, 136), (2, 1, 64, 257, 16, 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_wide_attention_kernels_match_twins(cuda, dtype):
     """K2 and K4 at head dims past 128 against their twins, with the limits of
-    the narrow kernels; the token views of a one-head Nonlocal at d = 256 too."""
+    the narrow kernels; the token views of a one-head Nonlocal at d = 256 (TMA
+    loads) and of a two-head one at C = 130 (rows of 260 bytes: cp.async of 4
+    bytes) too."""
     g = torch.Generator().manual_seed(11)
     cases = [[(torch.randn(b, h, n, d, generator=g) * d**-0.5).to(cuda, dtype),
               torch.randn(b, h, m, d, generator=g).to(cuda, dtype), torch.randn(b, h, m, dv, generator=g).to(cuda, dtype),
               torch.randn(b, h, n, dv, generator=g).to(cuda, dtype)] for b, h, n, m, d, dv in WIDE_ATTN_SHAPES]
     cases.append(list(_token_views(g, 2, 1, 196, 256, dtype, cuda)))
+    cases.append(list(_token_views(g, 1, 2, 130, 130, dtype, cuda)))
     for q, k, v, do in cases:
         where = (tuple(q.shape), tuple(v.shape))
         f = [t.float().contiguous() for t in (q, k, v, do)]
@@ -356,7 +362,8 @@ def test_cuda_wide_attention_kernels_match_twins(cuda, dtype):
 @pytest.mark.cuda
 def test_cuda_wide_attention_repeats_and_limits(cuda):
     """The wide K2 and K4 in bf16 repeat to the bit (each output element from one
-    block); past 512 both raise, naming the ROADMAP item."""
+    block; the forward's row max and sum combined across its two warpgroups in
+    a fixed order); past 512 both raise, naming the ROADMAP item."""
     g = torch.Generator().manual_seed(12)
     q, k, v, do = _token_views(g, 2, 1, 784, 512, torch.bfloat16, cuda)
     o, lse = K.attention_fwd(q, k, v)
@@ -371,6 +378,14 @@ def test_cuda_wide_attention_repeats_and_limits(cuda):
         K.attention_fwd(big, big, big)
     with pytest.raises(ValueError, match="item 13"):
         K.attention_bwd(big, big, big, big, torch.zeros(1, 1, 8, device=cuda), big)
+    # one side past 512 beside d or dv = 200, which the kernels take
+    mid = torch.zeros(1, 1, 8, 200, device=cuda)
+    with pytest.raises(ValueError, match="item 13"):
+        K.attention_fwd(big, big, mid)
+    with pytest.raises(ValueError, match="item 13"):
+        K.attention_fwd(mid, mid, big)
+    with pytest.raises(ValueError, match="item 13"):
+        K.attention_bwd(mid, mid, big, big, torch.zeros(1, 1, 8, device=cuda), big)
 
 
 @pytest.mark.cuda
