@@ -16,8 +16,9 @@ pvt_v2_b0…b5 or resnet18…152.
 ``train`` is the JAX ``run_train``: the epoch loop with ``steps_per_call``
 batches stacked into ``Trainer.multi_step`` and the epoch-end flush, logs and
 scalars, a rotating step checkpoint every epoch, ``final``, the metric curves,
-``--resume``, ``--pretrained_pth`` and ``--throughput``, whose JSON is its
-last line; and each dataset's eval policy after an epoch: Synapse from epoch
+``--resume``, ``--pretrained_pth``, ``--model_stats`` (FLOPs and bytes of
+a forward at startup, ``core/stats.py``) and ``--throughput``, whose JSON is
+its last line; and each dataset's eval policy after an epoch: Synapse from epoch
 T/2 every ``eval_interval`` epochs an ``epochN`` tag and a volume eval; ACDC
 a per-slice val every epoch and, when it improves, a volume test, and
 ``best`` when that improves; HAM10000/PH2 the same cascade with the skin val
@@ -30,8 +31,8 @@ snapshot directory's ``best``/``final``/last epoch/latest step
 z_spacing)), and print ``{"mean_dice": …, "mean_hd95": …}``; the skin presets
 run ``skin_test`` over the test split, optionally with contour overlays
 (``--save_figs``), and print ``{"dice": …, "acc": …, "iou": …}``, as the last
-line. What is not ported yet (``bench``, ``--mesh``/``--coordinator``,
-``--model_stats``) exits with the ROADMAP item that ports it.
+line. What is not ported yet (``bench``, ``--mesh``/``--coordinator``)
+exits with the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -50,7 +51,6 @@ import numpy as np
 NOT_PORTED = {
     "bench": "the bench mode is not ported yet (ROADMAP queue 1 items 1 and 5)",
     "mesh": "--mesh and --coordinator (multi-device and multi-host runs) are not ported yet (ROADMAP queue 1 item 11)",
-    "model_stats": "--model_stats (FLOPs and bytes at startup) is not ported yet (ROADMAP queue 1 item 12)",
 }
 
 
@@ -93,7 +93,7 @@ def build_argparser():
                    help="per-case image/GT/pred figures during eval (utils_synapse.py:86) "
                         "/ skin contour overlays (utils_skin.py:155-157)")
     p.add_argument("--model_stats", action="store_true",
-                   help="FLOPs/bytes at startup (train only, not ported yet); param count is always printed")
+                   help="FLOPs/bytes of a forward at startup (train only); param count is always printed")
     p.add_argument("--z_spacing", type=int, default=None)
     # multi-host initialization (not ported yet)
     p.add_argument("--coordinator", default=None, help="host:port of process 0")
@@ -343,7 +343,7 @@ def run_train(cfg, args, test_set=None):
     from cenet_tpu_torch.core.checkpoint import CheckpointManager, load_pretrained_encoder
     from cenet_tpu_torch.core.device import resolve_device
     from cenet_tpu_torch.core.logging_utils import ScalarWriter, Throughput
-    from cenet_tpu_torch.core.stats import count_params
+    from cenet_tpu_torch.core.stats import count_params, print_model_stats
     from cenet_tpu_torch.data.loader import Loader, device_put_fn
     from cenet_tpu_torch.evaluate.skin import skin_test
     from cenet_tpu_torch.evaluate.visualize import plot_metric_curves
@@ -361,6 +361,8 @@ def run_train(cfg, args, test_set=None):
         max_iterations = cfg.train.max_epochs * iters_per_epoch
         trainer = Trainer(cfg, max_iterations, iters_per_epoch=iters_per_epoch, device=device)
         log.info("model: %.2f M params", count_params(trainer.model) / 1e6)
+        if args.model_stats:  # the same count on the card as on the CPU (core/stats.py)
+            print_model_stats(trainer.model, (1, cfg.model.input_channels, d.img_size, d.img_size), log=log.info)
         pretrained = args.pretrained_pth
         if not pretrained and cfg.model.enc_pretrain:
             # reference default: train mode loads {base_ptdir}/{encoder}.pth
@@ -553,8 +555,6 @@ def main(argv: Optional[Sequence[str]] = None, test_set=None):
         raise SystemExit(NOT_PORTED["bench"])
     if args.mesh or args.coordinator:
         raise SystemExit(NOT_PORTED["mesh"])
-    if args.mode == "train" and args.model_stats:
-        raise SystemExit(NOT_PORTED["model_stats"])
     cfg = make_config(args)
     np.random.seed(cfg.train.seed)
     if args.mode == "train":

@@ -5,8 +5,8 @@ Copies of ``setup_logging``, ``ScalarWriter`` and ``Throughput`` from
 package). Reference surface: python logging to ``snapshot_path/log_{train,eval}.txt``
 (``main_synapse.py:111-120``), tensorboardX scalars per iteration and images
 every 100 iterations (``main_synapse.py:279-293``), and a real ``--throughput``
-(the reference flag is dead). The profiler hook is not ported yet (ROADMAP
-queue 1 item 12).
+(the reference flag is dead). ``ProfilerHook`` is the JAX package's, on
+``torch.profiler``: a library API, which no CLI flag turns on.
 """
 
 from __future__ import annotations
@@ -97,3 +97,39 @@ class Throughput:
         if self.t0 is None or self.n_images == 0:
             return 0.0
         return self.n_images / (time.time() - self.t0)
+
+
+class ProfilerHook:
+    """``torch.profiler`` over a window of steps, as the JAX package's hook
+    traces one (``cenet_tpu/core/logging_utils.py:99-116``): call
+    ``maybe_start_stop(step)`` before each step. A profile of the host (and of
+    the card's kernels when a card is present) starts at ``start_step`` and
+    stops at ``start_step + num_steps``, after the card has finished the
+    window's kernels; then it writes a Chrome trace to
+    ``<logdir>/trace_steps_<start>-<stop>.json``. It starts only when inactive
+    and stops only when active, so repeated calls at those steps do nothing."""
+
+    def __init__(self, logdir: str, start_step: int = 10, num_steps: int = 5):
+        self.logdir = logdir
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps
+        self.trace_path: Optional[str] = None
+        self._prof = None
+
+    def maybe_start_stop(self, step: int):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = torch.cuda.is_available()
+        if step == self.start_step and self._prof is None:
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        elif step == self.stop_step and self._prof is not None:
+            if cuda:
+                torch.cuda.synchronize()
+            prof, self._prof = self._prof, None
+            prof.__exit__(None, None, None)
+            os.makedirs(self.logdir, exist_ok=True)
+            self.trace_path = os.path.join(self.logdir, f"trace_steps_{self.start_step}-{self.stop_step}.json")
+            prof.export_chrome_trace(self.trace_path)

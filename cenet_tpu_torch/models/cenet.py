@@ -32,11 +32,11 @@ class CENet(nn.Module):
                  diffatt_num_heads: Sequence[int] = (2, 2, 2), encoder: str = "pvt_v2_b2", skip_mode: str = "cat",
                  dec_up_block: str = "eucb", out_merge_mode: str = "cat", out_up_block: str = "eucb",
                  out_up_ks: int = 3, skip_use_command: str = "dat-fea", attn_impl: str = "pallas",
-                 drop_path_rate: float = 0.1):
+                 drop_path_rate: float = 0.1, remat: bool = False):
         super().__init__()
         enc_chans = 3 if input_channels == 1 else input_channels  # a grayscale input is replicated
         self.backbone, channels = make_encoder(encoder, input_channels=enc_chans, attn_impl=attn_impl,
-                                               drop_path_rate=drop_path_rate)
+                                               drop_path_rate=drop_path_rate, remat=remat)
         self.decoder = Decoder(channels=tuple(channels), scale_factors=scale_factors, skip_mode=skip_mode,
                                num_heads=diffatt_num_heads, up_block=dec_up_block,
                                skip_use_command=skip_use_command, attn_impl=attn_impl)
@@ -103,14 +103,13 @@ def build_model(cfg: ExperimentConfig, device: Optional[Union[str, torch.device]
     (``cenet_tpu/train/trainer.py:39-67``), on ``device`` (the card unless the
     caller names another), in eval mode, with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` (a fresh seed when it is None). The
-    global RNG is left as it was. ``train.remat`` raises ``NotImplementedError``
-    for CENet (not ported yet); CENetOrg ignores it, as the JAX package does."""
+    global RNG is left as it was. ``train.remat`` recomputes each block of a
+    CENet's PVT encoder in the backward (``models/pvtv2.py::checkpointed_block``);
+    ResNet encoders and CENetOrg ignore it, as the JAX package's do."""
     dev = resolve_device(device)
     m = cfg.model
     if m.model_version not in ("cenet", "cenet_org"):
         raise ValueError(f"unknown model_version {m.model_version!r}")
-    if cfg.train.remat and m.model_version == "cenet":
-        raise NotImplementedError("train.remat (checkpointing the encoder's blocks) is not ported yet")
     gen = torch.Generator()
     if seed is None:
         gen.seed()
@@ -129,6 +128,6 @@ def build_model(cfg: ExperimentConfig, device: Optional[Union[str, torch.device]
                 diffatt_num_heads=m.diffatt_num_heads, encoder=m.encoder, skip_mode=m.skip_mode,
                 dec_up_block=m.dec_up_block, out_merge_mode=m.out_merge_mode, out_up_block=m.out_up_block,
                 out_up_ks=m.out_up_ks, skip_use_command=m.skip_use_command, attn_impl=m.attn_impl,
-                drop_path_rate=m.drop_path_rate,
+                drop_path_rate=m.drop_path_rate, remat=cfg.train.remat,
             )
     return init_weights_(model, gen).to(dev).eval()

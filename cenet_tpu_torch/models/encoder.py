@@ -31,15 +31,17 @@ ENCODER_CHANNELS = {
 
 
 def make_encoder(encoder: str, input_channels: int = 3, attn_impl: str = "xla",
-                 drop_path_rate: float = 0.1) -> Tuple[nn.Module, List[int]]:
+                 drop_path_rate: float = 0.1, remat: bool = False) -> Tuple[nn.Module, List[int]]:
     """The backbone and its channel list; its stem takes ``input_channels``, the
     channels the model hands it (3 for a grayscale image, which CENet
     replicates, ``net.py:55``, and CENetOrg maps with a learned conv; reference
-    ``encoder.py:54-66``)."""
+    ``encoder.py:54-66``). ``remat`` reaches a named PVT encoder only: the
+    ResNets and the unknown-name fallback ignore it, as the JAX package's do."""
     if encoder in RESNET_VARIANTS:
         return make_resnet(encoder, in_chans=input_channels), ENCODER_CHANNELS[encoder]
     if encoder not in PVT_VARIANTS:
         logging.getLogger(__name__).warning("unknown encoder %r: using pvt_v2_b2", encoder)
-        encoder = "pvt_v2_b2"
-    return (make_pvt(encoder, in_chans=input_channels, attn_impl=attn_impl, drop_path_rate=drop_path_rate),
+        encoder, remat = "pvt_v2_b2", False
+    return (make_pvt(encoder, in_chans=input_channels, attn_impl=attn_impl, drop_path_rate=drop_path_rate,
+                     remat=remat),
             ENCODER_CHANNELS[encoder])

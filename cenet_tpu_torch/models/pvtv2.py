@@ -5,6 +5,8 @@ N×(SRA attention + DWConv-MLP) → LayerNorm, returning NCHW maps at strides
 4/8/16/32. Tokens inside a stage are (B, N, C). Initial weights are the JAX
 package's: N(0, 2/fan_out) for the patch-embedding, DWConv and SRA convs, a
 truncated normal of std 0.02 for the linears, zero biases but the SRA conv's.
+``remat`` recomputes each block in the backward (``torch.utils.checkpoint``,
+as ``nn.remat(PVTBlock)`` does), with the same drop-path masks.
 """
 
 from __future__ import annotations
@@ -13,10 +15,11 @@ from typing import List, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from cenet_tpu_torch.nn import functional as F
 from cenet_tpu_torch.nn.attention import SRAAttention
-from cenet_tpu_torch.nn.layers import TRUNC_NORMAL, Conv2d, DropPath, Dropout, LayerNorm, Linear
+from cenet_tpu_torch.nn.layers import TRUNC_NORMAL, Conv2d, DropPath, Dropout, LayerNorm, Linear, _RandomMask
 
 
 class DWConv(nn.Module):
@@ -67,6 +70,37 @@ class PVTBlock(nn.Module):
         return x + self.drop_path(self.mlp(self.norm2(x), H, W))
 
 
+def checkpointed_block(blk: PVTBlock, tokens: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """``blk(tokens, H, W)`` under ``torch.utils.checkpoint``, recomputed in the
+    backward with the masks its forward drew. The checkpoint restores only the
+    default generators; drop-path and dropout draw from the generators the
+    trainer attaches. So their states are saved here as the block enters its
+    forward, set again for the recompute, and put back after it to what they
+    were before it: the next microbatch's forward (``grad_accum_steps`` > 1)
+    then draws what it draws without ``remat``."""
+    gens = list({id(m.generator): m.generator for m in blk.modules()
+                 if isinstance(m, _RandomMask) and m.rate > 0 and m.generator is not None}.values())
+    entry = [g.get_state() for g in gens]
+    calls = 0
+
+    def run(t: torch.Tensor) -> torch.Tensor:
+        nonlocal calls
+        calls += 1
+        if calls == 1 or not gens:
+            return blk(t, H, W)
+        now = [g.get_state() for g in gens]
+        for g, s in zip(gens, entry):
+            g.set_state(s)
+        try:
+            return blk(t, H, W)
+        finally:  # also when the checkpoint stops the recompute early
+            for g, s in zip(gens, now):
+                g.set_state(s)
+
+    # the blocks draw from no default generator, so the checkpoint need not stash them
+    return checkpoint(run, tokens, use_reentrant=False, preserve_rng_state=False)
+
+
 class OverlapPatchEmbed(nn.Module):
     """Strided-conv patch embedding + LayerNorm (reference ``pvtv2.py:152-191``)."""
 
@@ -84,15 +118,19 @@ class OverlapPatchEmbed(nn.Module):
 
 class PVTv2(nn.Module):
     """Backbone returning the four NCHW stage maps (reference ``pvtv2.py:194-356``).
-    Torch keys: ``patch_embed{s}``, ``block{s}.{i}``, ``norm{s}`` for stages s = 1..4."""
+    Torch keys: ``patch_embed{s}``, ``block{s}.{i}``, ``norm{s}`` for stages s = 1..4.
+    With ``remat`` each block is recomputed in the backward
+    (:func:`checkpointed_block`) whenever autograd records in train mode; eval
+    and inference run the blocks as they are."""
 
     def __init__(self, in_chans: int = 3, embed_dims: Sequence[int] = (64, 128, 320, 512),
                  num_heads: Sequence[int] = (1, 2, 5, 8), mlp_ratios: Sequence[float] = (8, 8, 4, 4),
                  qkv_bias: bool = True, depths: Sequence[int] = (3, 4, 6, 3),
                  sr_ratios: Sequence[int] = (8, 4, 2, 1), drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
-                 drop_path_rate: float = 0.1, attn_impl: str = "xla"):
+                 drop_path_rate: float = 0.1, attn_impl: str = "xla", remat: bool = False):
         super().__init__()
         self.embed_dims = tuple(embed_dims)
+        self.remat = remat
         dpr = torch.linspace(0, drop_path_rate, sum(depths)).tolist()
         patch_cfg = [(7, 4, in_chans), (3, 2, embed_dims[0]), (3, 2, embed_dims[1]), (3, 2, embed_dims[2])]
         cur = 0
@@ -109,10 +147,11 @@ class PVTv2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         outs = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for s in range(1, 5):
             tokens, H, W = getattr(self, f"patch_embed{s}")(x if s == 1 else outs[-1])
             for blk in getattr(self, f"block{s}"):
-                tokens = blk(tokens, H, W)
+                tokens = checkpointed_block(blk, tokens, H, W) if remat else blk(tokens, H, W)
             tokens = getattr(self, f"norm{s}")(tokens)
             outs.append(tokens.transpose(1, 2).reshape(tokens.shape[0], -1, H, W).contiguous())
         return outs
@@ -129,11 +168,12 @@ PVT_VARIANTS = {
 }
 
 
-def make_pvt(variant: str, in_chans: int = 3, attn_impl: str = "xla", drop_path_rate: float = 0.1, **kw) -> PVTv2:
+def make_pvt(variant: str, in_chans: int = 3, attn_impl: str = "xla", drop_path_rate: float = 0.1,
+             remat: bool = False, **kw) -> PVTv2:
     """A PVTv2 variant; ``kw`` passes ``drop_rate`` and ``attn_drop_rate`` (0 in every reference config)."""
     cfg = dict(PVT_VARIANTS[variant])
     return PVTv2(
         in_chans=in_chans, embed_dims=cfg["embed_dims"], depths=cfg["depths"],
         mlp_ratios=cfg.get("mlp_ratios", (8, 8, 4, 4)), num_heads=(1, 2, 5, 8), sr_ratios=(8, 4, 2, 1),
-        qkv_bias=True, drop_path_rate=drop_path_rate, attn_impl=attn_impl, **kw,
+        qkv_bias=True, drop_path_rate=drop_path_rate, attn_impl=attn_impl, remat=remat, **kw,
     )

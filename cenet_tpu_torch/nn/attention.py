@@ -91,6 +91,21 @@ def lambda_init_fn(depth: int) -> float:
     return 0.8 - 0.6 * math.exp(-0.3 * depth)
 
 
+def diff_attention_naive(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lam: torch.Tensor,
+                         rel_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's naive diff attention on the interleaved layout (q/k
+    ``(B, 2h, N, d)``, v ``(B, h, M, dv)``): full (B, 2h, N, M) maps in the
+    reference's order of ops, with its (no-op on finite inputs) nan_to_num; the
+    two groups' weights are merged (plus ``rel_pos``) before one product with v."""
+    b, h2, n, _ = qs.shape
+    logits = torch.nan_to_num(torch.matmul(qs, k.transpose(-1, -2)))
+    weights = F.softmax_fp32(logits).reshape(b, h2 // 2, 2, n, k.shape[2])
+    weights = weights[:, :, 0] - lam * weights[:, :, 1]
+    if rel_pos is not None:
+        weights = weights + rel_pos
+    return torch.matmul(weights, v)
+
+
 class MultiheadDiffAttn(nn.Module):
     """DIFF-Transformer attention (reference ``multihead_diffattn.py:32-129``).
 
@@ -152,14 +167,7 @@ class MultiheadDiffAttn(nn.Module):
         bias = rel_pos is not None and not self.use_rotary
         core = router.parse_impl(self.attn_impl)[0]
         if core == "xla" or bias:
-            # naive reference path: full (B, 2h, N, N) maps in the reference's
-            # order of ops, with its (no-op on finite inputs) nan_to_num
-            logits = torch.nan_to_num(torch.matmul(qs, k.transpose(-1, -2)))
-            weights = F.softmax_fp32(logits).reshape(B, h, 2, N, N)
-            weights = weights[:, :, 0] - lambda_full * weights[:, :, 1]
-            if bias:
-                weights = weights + rel_pos
-            attn = torch.matmul(weights, v)
+            attn = diff_attention_naive(qs, k, v, lambda_full, rel_pos if bias else None)
         else:
             get_attention_core(self.attn_impl)  # raises on an unknown name, 'ring' and '@axis'
             if core == "chunked":

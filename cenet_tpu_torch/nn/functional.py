@@ -134,6 +134,29 @@ def zoom_resize(x: torch.Tensor, out_hw: tuple[int, int], order: int = 3) -> tor
     return _apply_separable(x, ("zoom", h, oh, order), ("zoom", w, ow, order))
 
 
+@functools.lru_cache(maxsize=64)
+def _nearest_on(in_size: int, out_size: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    idx, valid = zoom_nearest_indices(in_size, out_size)
+    with torch.inference_mode(False):
+        return torch.from_numpy(idx).to(device), torch.from_numpy(valid).to(device)
+
+
+def zoom_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """``scipy.ndimage.zoom(..., order=0)`` (nearest) of the last two dims of
+    ``x`` (NCHW, or (B, H, W) labels), for any dtype, as
+    ``cenet_tpu/nn/functional.py::zoom_nearest``: a gather of rows and columns,
+    zeros where scipy's map reaches no input."""
+    h, w = x.shape[-2], x.shape[-1]
+    oh, ow = out_hw
+    if (oh, ow) == (h, w):
+        return x
+    idx_h, valid_h = _nearest_on(h, oh, x.device)
+    idx_w, valid_w = _nearest_on(w, ow, x.device)
+    x = x.index_select(-2, idx_h).index_select(-1, idx_w)
+    valid = valid_h[:, None] & valid_w[None, :]
+    return torch.where(valid, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def adaptive_avg_pool2d(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """torch ``AdaptiveAvgPool2d(out_hw)``, as the JAX package's matrix product."""
     h, w = x.shape[2], x.shape[3]

@@ -4,8 +4,10 @@ Mirrors ``cenet_tpu/ops/flash_attention.py:148-269`` with the same size rule:
 a site reaches a kernel only when its full fp32 map is larger than
 ``_SMALL_LIMIT`` (32 MB), so the same sites reach the kernels in both packages.
 The limit is module-level so that tests and ``chip_smoke.py`` can change it.
-CPU tensors always take the plain path. CUDA tensors above the limit always
-take the kernel: a kernel that fails raises, it is not hidden behind a fallback.
+Tensors off the card always take the plain path: CPU tensors, and ``meta``
+tensors, on which ``core/stats.py::model_cost`` counts a model's work. CUDA
+tensors above the limit always take the kernel: a kernel that fails raises, it
+is not hidden behind a fallback.
 When autograd records (grad mode on and an input requires grad), the kernel is
 reached through its ``torch.autograd.Function``, whose backward is the backward
 kernel; otherwise (``inference_mode``, ``no_grad``) the forward kernel is called
@@ -42,7 +44,7 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 def _use_kernel(q: torch.Tensor, map_elems: int) -> bool:
-    return q.device.type != "cpu" and map_elems * 4 > _SMALL_LIMIT
+    return q.device.type == "cuda" and map_elems * 4 > _SMALL_LIMIT
 
 
 def _records_grad(*tensors: torch.Tensor) -> bool:

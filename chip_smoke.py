@@ -132,6 +132,20 @@ runs K10. Phases:
    6f. the same with ``--encoder resnet50`` (CENet): K1 at DSEB1–3 (d, dv =
    32, 64 and 64, 128), K2 and K4 at dec1 (d = dv = 256) and K2 at dec2 in the
    eval chunk (512);
+   6g. the rest of the one-card training surface (run after 6b, on phase 6's
+   slices), the Synapse preset at full width: two steps with ``train.remat``
+   against two without from the same state and generator seed (drop-path
+   0.1), in a fresh process under 6b's determinism settings, equal to the
+   bit; a step of each here, with K1–K4 launched as without remat, its peak
+   memory and step ms; the remat step on the swapped route with 86 K11
+   forwards (the 16 PVT ``DWConv``s again in the recompute); ``ProfilerHook``
+   over two steps, its trace naming K1–K4's tensor-core kernels;
+   ``assert_finite`` and ``tree_norm`` of the trained state; ``cli train
+   --model_stats`` for one epoch, its GFLOPs line equal to ``model_cost`` of
+   the model on the CPU, beside what ``FlopCounterMode`` reads of the card's
+   forward with its sites routed; ``device_augment`` on eight seeded 512²
+   slices against the CPU for the same choices, with its img/s beside the
+   host path's;
 7. where one training step's time goes: ``torch.profiler`` over one bf16 step
    (the card's busy time, and the host's), which must show the tensor-core
    kernels of K1–K4 and no CUDA-core instance of any of them;
@@ -1479,8 +1493,9 @@ def write_split(root, seed=5):
 def phase_train(root, warmup=3, steps=30):
     """The training path: ``SynapseDataset`` → ``Loader`` → ``Trainer.train_step``
     with the Synapse preset as it stands, on 64 slices written under ``root``
-    (which phase 6b reads again); returns the launch counts of the timed steps,
-    the trainer, a device-resident batch and the img/s through the loader."""
+    (which phases 6b and 6g read again); returns the launch counts of the timed
+    steps, the trainer, a device-resident batch, the img/s through the loader
+    and the wait on it a step (ms)."""
     cfg = get_preset("synapse")
     n_slices = write_split(root)
     ds = SynapseDataset(root, root, "train", img_size=cfg.data.img_size)  # preloads every slice
@@ -1531,7 +1546,7 @@ def phase_train(root, warmup=3, steps=30):
           "launches_per_step": {k: v / steps for k, v in launches.items()}})
     check(all(np.isfinite(loss_values)), f"a training loss is not finite: {loss_values}")
     check_launches(launches, TRAIN_PER_STEP["interleaved"], steps, f"train, {steps} steps")
-    return launches, trainer, images, labels, steps * cfg.train.batch_size / wall
+    return launches, trainer, images, labels, steps * cfg.train.batch_size / wall, wait / steps * 1e3
 
 
 def profile_step(trainer, images, labels, top=15):
@@ -2344,6 +2359,20 @@ def phase_swapped_train(trainer, images, labels, dw_layouts, steps=10):
     return launched
 
 
+def compare_states(t1, t2):
+    """The tensors of two trainers' states (weights, BatchNorm buffers,
+    momentum) and those that differ: their count, the first five, the largest
+    difference."""
+    def state(t):
+        return {**{f"model.{k}": v for k, v in t.model.state_dict().items()},
+                **{f"opt.{n}.{s}": x for n, slots in t.optimizer.state.items() for s, x in slots.items()}}
+
+    a, b = state(t1), state(t2)
+    unequal = sorted(k for k in a if k not in b or not torch.equal(a[k], b[k]))
+    return {"tensors": [len(a), len(b)], "unequal": len(unequal), "first_unequal": unequal[:5],
+            "max_abs_diff": max((amax(a[k].float() - b[k].float()) for k in unequal if k in b), default=0.0)}
+
+
 def train_and_resume(root, out, epochs=2):
     """``cli train`` on the slices under ``root`` for ``epochs`` epochs without
     snapshot evals (``--eval_interval`` above ``epochs``) under ``out/full``,
@@ -2370,21 +2399,13 @@ def train_and_resume(root, out, epochs=2):
         snap = cli.snapshot_path(cli.make_config(cli.build_argparser().parse_args(argv)))
         return trainer, snap, json.loads(buf.getvalue().strip().splitlines()[-1])["value"], seconds, buf.getvalue()
 
-    def state(t):
-        return {**{f"model.{k}": v for k, v in t.model.state_dict().items()},
-                **{f"opt.{n}.{s}": x for n, slots in t.optimizer.state.items() for s, x in slots.items()}}
-
     full, snap, img_s, full_s, _ = train("full")
     copy = os.path.join(out, "resumed", os.path.basename(snap))
     shutil.copytree(snap, copy)
     for name in (f"steps/{full.step}.pth", "final.pth"):
         os.remove(os.path.join(copy, name))
     resumed, _, _, resumed_s, log = train("resumed", "--resume")
-    a, b = state(full), state(resumed)
-    unequal = sorted(k for k in a if k not in b or not torch.equal(a[k], b[k]))
-    result = {"steps": [full.step, resumed.step], "tensors": [len(a), len(b)], "unequal": len(unequal),
-              "first_unequal": unequal[:5],
-              "max_abs_diff": max((amax(a[k].float() - b[k].float()) for k in unequal if k in b), default=0.0),
+    result = {"steps": [full.step, resumed.step], **compare_states(full, resumed),
               "resumed_from": [line.split("] ", 1)[-1] for line in log.splitlines() if "resumed from" in line],
               "img_per_s": img_s, "full_s": full_s, "resumed_s": resumed_s}
     # then the step on a resident batch (CUDA events over 10 steps after one),
@@ -2532,6 +2553,268 @@ def phase_cli_train(root, train_img_per_s, epochs=2):
     check(det["unequal"] == 0 and det["tensors"][0] == det["tensors"][1],
           f"cli train resume under the determinism settings: {det['unequal']} tensors differ ({det})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6g: remat, --model_stats, the profiler hook, debug, device augmentation
+# ---------------------------------------------------------------------------
+
+# per train step with ``train.remat`` on the swapped route: the recompute runs
+# the forward of each of b2's 16 PVT blocks again, so its DWConv's K11 forward
+# (86 = 35 forwards + 35 dx + 16 recomputed); the routed sites lie outside the
+# PVT blocks, so K1–K4 launch as without remat
+TRAIN_PER_STEP["swapped, remat"] = {**TRAIN_PER_STEP["swapped"], "depthwise_fwd": 86}
+# the tensor-core kernels of K1–K4 that a bf16 step's trace must name
+TRACE_DESIGNS = ("fwd_tc", "bwd_dq_tc", "bwd_dkv_tc", "diff_fwd_tc", "diff_bwd_dq_tc", "diff_bwd_dkv_tc")
+
+
+def remat_config(remat):
+    """The Synapse preset as it stands (CENet-b2, 224², batch 8, bf16,
+    drop-path 0.1), with ``train.remat`` on or off."""
+    base = get_preset("synapse")
+    return base.replace(train=dataclasses.replace(base.train, remat=remat))
+
+
+def remat_against_plain(steps=2):
+    """``steps`` train steps at batch 8 with ``train.remat`` and without, from
+    the same seeded weights on the same batch (the trainer reseeds its
+    drop-path generator from the step count): each run's losses and launch
+    counts, and ``compare_states`` of the two final states."""
+    x, y = labelled_slices(7, TRAIN_B, 224)
+    x, y = x.to(DEV), y.to(DEV)
+    runs, trainers = {}, []
+    for remat in (False, True):
+        trainer = Trainer(remat_config(remat), max_iterations=100, device=DEV, model_seed=0)
+        K.reset_launches()
+        losses = [trainer.train_step(x, y) for _ in range(steps)]
+        torch.cuda.synchronize()
+        runs["remat" if remat else "plain"] = {"losses": torch.stack(losses).cpu().tolist(),
+                                               "launches": dict(K.LAUNCHES)}
+        trainers.append(trainer)
+    return {**runs, **compare_states(*trainers),
+            "losses_equal": runs["plain"]["losses"] == runs["remat"]["losses"]}
+
+
+# phase 6g's remat check in a fresh process under phase 6b's determinism
+# settings (CUBLAS_WORKSPACE_CONFIG before the process first touches cuBLAS)
+REMAT_AGAINST_PLAIN = r"""
+import json, os
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True)
+import chip_smoke
+print(json.dumps(chip_smoke.remat_against_plain()))
+"""
+
+
+def trace_designs(path):
+    """Kernel events of a Chrome trace by ``KERNEL_DESIGNS``' patterns."""
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    return {d: sum(bool(re.search(pat, n)) for n in names) for d, pat in KERNEL_DESIGNS.items()}
+
+
+def hooked_trace(trainer, images, labels, tries=3):
+    """``ProfilerHook`` over steps 1 and 2 of four: the trace's path, its kernel
+    events by design, and the try that named every design of
+    ``TRACE_DESIGNS`` (a session now and then loses kernel records, so up to
+    ``tries`` sessions, as ``profiled_kernels``)."""
+    from cenet_tpu_torch.core.logging_utils import ProfilerHook
+
+    with tempfile.TemporaryDirectory() as out:
+        for attempt in range(1, tries + 1):
+            hook = ProfilerHook(os.path.join(out, f"try{attempt}"), start_step=1, num_steps=2)
+            for step in range(4):
+                hook.maybe_start_stop(step)
+                trainer.train_step(images, labels)
+            torch.cuda.synchronize()
+            designs = trace_designs(hook.trace_path)
+            if all(designs[d] > 0 for d in TRACE_DESIGNS):
+                break
+        return {"trace": os.path.basename(hook.trace_path), "bytes": os.path.getsize(hook.trace_path),
+                "try": attempt, "designs": {d: n for d, n in designs.items() if n}}
+
+
+def model_stats_cli(root):
+    """``cli train --preset synapse --model_stats`` in-process on phase 6's
+    slices for one epoch (8 steps, no snapshot eval): its launch counts, its
+    stats line, ``model_cost`` of its trainer's model on the card and of the
+    same model built on the CPU, and what ``FlopCounterMode`` reads of the
+    card's forward at (1, 1, 224, 224) with the sites routed as the card
+    routes them, and with every site under the router's limit."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cenet_tpu_torch.cli import main as cli
+    from cenet_tpu_torch.core.stats import model_cost
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["train", "--preset", "synapse", "--root_path", root, "--list_dir", root, "--output_dir", tmp,
+                "--max_epochs", "1", "--eval_interval", "2", "--model_stats"]
+        out = io.StringIO()
+        K.reset_launches()
+        with contextlib.redirect_stdout(out):
+            trainer = cli.main(argv, test_set=InMemoryVolumes([]))
+        launches, steps = dict(K.LAUNCHES), trainer.step
+    line = [ln.split("] ", 1)[-1] for ln in out.getvalue().splitlines() if "GFLOPs" in ln]
+    shape = (1, 1, 224, 224)
+    card = model_cost(trainer.model, shape)
+    cpu = model_cost(build_model(get_preset("synapse"), device="cpu", seed=0), shape)
+    want = (f"model: {cpu['params_m']:.2f} M params, {cpu['flops_g']:.2f} GFLOPs @ {shape}, "
+            f"{cpu['bytes_accessed_gb']:.2f} GB accessed")
+    model = trainer.model.eval()
+    naive = {}
+    for name, limit in (("routed", router._SMALL_LIMIT), ("plain", 1 << 62)):
+        saved, router._SMALL_LIMIT = router._SMALL_LIMIT, limit
+        try:
+            with torch.no_grad(), FlopCounterMode(display=False) as fc:
+                model(torch.zeros(shape, device=DEV))
+        finally:
+            router._SMALL_LIMIT = saved
+        naive[name] = fc.get_total_flops() / 1e9
+    return {"steps": steps, "launches": launches, "line": line, "want": want, "card": card, "cpu": cpu,
+            "naive_aten_gflops_on_card": naive, "naive_gap_gflops": naive["plain"] - naive["routed"]}
+
+
+def device_augment_check(train_wait_ms, n=8, size=512, out_size=224, reps=20):
+    """``data/device_augment.py`` on the card: ``n`` raw seeded ``size``²
+    slices in, an ``out_size``² batch out; the card's transform against the
+    CPU's for the same per-sample choices (labels equal, images within 1e-5 of
+    max |x|); img/s of ``random_generator_batch`` by CUDA events beside the
+    host path's (``data/augment.py::random_generator`` on the same slices,
+    one at a time, by the host's clock) and phase 6's loader wait."""
+    from cenet_tpu_torch.data import device_augment as DA
+
+    x, y = labelled_slices(11, n, size)
+    xd, yd = x.to(DEV), y.to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    choices = DA.draw_choices(gen, n)
+    img, lab = DA.apply_choices(xd, yd, choices, out_size)
+    want_img, want_lab = DA.apply_choices(x, y, {k: v.cpu() for k, v in choices.items()}, out_size)
+    img_err = amax(img.cpu() - want_img) / max(amax(want_img), 1e-30)
+    labels_equal = torch.equal(lab.cpu(), want_lab)
+    branches = {"rot_flip": int((choices["u1"] > 0.5).sum()),
+                "rotate": int(((choices["u1"] <= 0.5) & (choices["u2"] > 0.5)).sum())}
+    got = DA.random_generator_batch(gen, xd, yd, out_size)
+    card_ms = time_ms(lambda: DA.random_generator_batch(gen, xd, yd, out_size), reps=reps)
+    rng = np.random.default_rng(0)
+    images, labels = x[:, 0].numpy(), y.numpy()
+    augment.random_generator(images[0], labels[0], out_size, rng)
+    t0 = time.perf_counter()
+    for i in range(n):
+        augment.random_generator(images[i], labels[i], out_size, rng)
+    host_s = time.perf_counter() - t0
+    return {"batch": n, "in": size, "out": out_size, "shapes": [list(t.shape) for t in got],
+            "dtypes": [str(t.dtype) for t in got], "branches_of_checked_batch": branches,
+            "image_err_vs_cpu": img_err, "labels_equal_cpu": labels_equal, "card_ms_per_batch": card_ms,
+            "card_img_per_s": n / card_ms * 1e3, "host_img_per_s": n / host_s,
+            "phase6_loader_wait_ms_per_step": train_wait_ms}
+
+
+def phase_remat(root, train_wait_ms):
+    """6g: the one-card training surface of this slice on the card at full
+    width (the Synapse preset, CENet-b2, 224², batch 8, bf16, seeded weights,
+    interleaved route):
+
+    - two steps with ``train.remat`` against two without, from the same state
+      and generator seed at drop-path 0.1, in a fresh process under phase 6b's
+      determinism settings: losses and every tensor of the final states equal
+      to the bit;
+    - a step of each in this process: K1–K4 launched as without remat, peak
+      memory (``max_memory_allocated``, reset before each), step ms (CUDA
+      events, 5 steps after the measured one), and one profiled step's busy
+      device ms, kernel launches and host operators (``profile_step``);
+    - the remat step on the swapped route (``swapped_ops``): 86 K11 forwards,
+      the rest as phase 7c's step;
+    - ``ProfilerHook`` over two remat steps: a trace naming K1–K4's
+      tensor-core kernels;
+    - ``assert_finite`` and ``tree_norm`` of the trained state;
+    - ``cli train --model_stats``: its stats line equal to ``model_cost`` of
+      the same model on the CPU, and the card's count equal to the CPU's, the
+      naive aten count on the card beside it;
+    - ``device_augment_check``.
+
+    Returns the launch counts of the remat step (the interleaved route)."""
+    from cenet_tpu_torch.core.debug import assert_finite, tree_norm
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", REMAT_AGAINST_PLAIN], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the remat process failed:\n{proc.stderr[-3000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    fresh["process_s"] = time.perf_counter() - t0
+    x, y = labelled_slices(7, TRAIN_B, 224)
+    x, y = x.to(DEV), y.to(DEV)
+    runs = {}
+    for remat in (False, True):
+        trainer = Trainer(remat_config(remat), max_iterations=100, device=DEV, model_seed=0)
+        trainer.train_step(x, y)  # cuDNN plans, optimizer state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        loss = trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        runs[remat] = {"launches": dict(K.LAUNCHES), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "loss": float(loss), "step_ms": time_ms(lambda: trainer.train_step(x, y), reps=5)}
+        prof = profile_step(trainer, x, y)  # where the step's time goes: the host or the card
+        runs[remat]["profile"] = {k: prof[k] for k in ("step_wall_ms_profiled", "device_busy_ms", "device_idle_share",
+                                                       "kernel_launches", "host_ops", "host_self_ms")}
+        if not remat:
+            del trainer
+            torch.cuda.empty_cache()
+    with swapped_ops():
+        trainer.train_step(x, y)
+        binding.reset_launches()
+        trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        swapped = dict(binding.LAUNCHES)
+    seconds = {"fresh_process": fresh["process_s"], "steps": time.perf_counter() - t0 - fresh["process_s"]}
+    t0 = time.perf_counter()
+    hooked = hooked_trace(trainer, x, y)
+    seconds["profiler_hook"] = time.perf_counter() - t0
+    state = trainer.state_dict()
+    assert_finite(state, "the remat trainer's state")
+    norms = {"params": tree_norm(dict(trainer.model.named_parameters())), "momentum": tree_norm(trainer.optimizer.state)}
+    del trainer, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats = model_stats_cli(root)
+    seconds["model_stats"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    augment_row = device_augment_check(train_wait_ms)
+    seconds["device_augment"] = time.perf_counter() - t0
+    plain, remat = runs[False], runs[True]
+    emit({"phase": "remat", "fresh_process": fresh,
+          "plain": plain, "remat": remat,
+          "peak_mem_ratio": remat["peak_mem_gb"] / plain["peak_mem_gb"],
+          "step_ms_ratio": remat["step_ms"] / plain["step_ms"],
+          "swapped_remat_launches": swapped, "profiler_hook": hooked, "tree_norm": norms,
+          "seconds": seconds, "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "model_stats", **stats})
+    emit({"phase": "device_augment", **augment_row})
+    check(fresh["losses_equal"] and fresh["unequal"] == 0 and fresh["tensors"][0] == fresh["tensors"][1],
+          f"remat against no remat: {fresh}")
+    check(fresh["plain"]["launches"] == fresh["remat"]["launches"],
+          f"remat launches {fresh['remat']['launches']} against {fresh['plain']['launches']}")
+    for on, run in runs.items():
+        check_launches(run["launches"], TRAIN_PER_STEP["interleaved"], 1, f"train step, remat={on}")
+        check(np.isfinite(run["loss"]), f"train step, remat={on}: loss {run['loss']}")
+    check_launches(swapped, TRAIN_PER_STEP["swapped, remat"], 1, "swapped remat step")
+    check(all(hooked["designs"].get(d, 0) > 0 for d in TRACE_DESIGNS),
+          f"ProfilerHook's trace lacks a tensor-core kernel of K1–K4: {hooked}")
+    check(np.isfinite(norms["params"]) and norms["params"] > 0, f"tree_norm {norms}")
+    check(stats["line"] == [stats["want"]], f"--model_stats logged {stats['line']}, the CPU's count {stats['want']}")
+    check(stats["card"] == stats["cpu"], f"model_cost on the card {stats['card']}, on the CPU {stats['cpu']}")
+    check(stats["naive_aten_gflops_on_card"]["plain"] == stats["cpu"]["flops_g"],
+          f"the unrouted aten count {stats['naive_aten_gflops_on_card']} is not model_cost's {stats['cpu']}")
+    check_launches(stats["launches"], TRAIN_PER_STEP["interleaved"], stats["steps"], "cli train --model_stats")
+    check(stats["steps"] == 64 // TRAIN_B, f"cli train --model_stats took {stats['steps']} steps")
+    check(augment_row["labels_equal_cpu"] and augment_row["image_err_vs_cpu"] <= 1e-5,
+          f"device augmentation on the card against the CPU: {augment_row}")
+    check(augment_row["shapes"] == [[TRAIN_B, 1, 224, 224], [TRAIN_B, 224, 224]], f"device augmentation {augment_row}")
+    return remat["launches"]
 
 
 # K10 calls profiled in a fresh process (``k10_calls_profiled``); its last line is
@@ -3117,7 +3400,7 @@ def main():
     del volume
     phase_profile()
     with tempfile.TemporaryDirectory() as train_root:
-        launches["train"], trainer, images, labels, train_img_per_s = phase_train(train_root)
+        launches["train"], trainer, images, labels, train_img_per_s, train_wait_ms = phase_train(train_root)
         phase_train_profile(trainer, images, labels)
         launches["train-split"] = phase_split_train(trainer, images, labels)
         launches["train-swapped"] = phase_swapped_train(trainer, images, labels, dw_layouts)
@@ -3126,6 +3409,7 @@ def main():
         torch.cuda.empty_cache()
         launches["rotary"], rotary_row = phase_rotary()
         launches["cli-train"] = phase_cli_train(train_root, train_img_per_s)
+        launches["remat"] = phase_remat(train_root, train_wait_ms)
     launches["acdc"] = phase_acdc()
     launches["ph2"] = phase_skin("ph2")
     launches["cenet_org"] = phase_zoo("cenet_org", "pvt_v2_b2", "cenet_org")
@@ -3140,6 +3424,7 @@ def main():
             "name": name, "k": spec["k"], "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
             "path": spec["path"], "launches": launches[spec["path"]][name],
             "cli_train_launches": launches["cli-train"].get(name, 0),
+            "remat_launches": launches["remat"].get(name, 0),
             "acdc_launches": launches["acdc"].get(name, 0), "ph2_launches": launches["ph2"].get(name, 0),
             "cenet_org_launches": launches["cenet_org"].get(name, 0),
             "resnet50_launches": launches["resnet50"].get(name, 0),

@@ -3,7 +3,8 @@
 ``get_attention_core`` maps the JAX package's names as
 ``cenet_tpu/nn/attention.py::get_attention_core`` does, and raises where the
 port has no counterpart yet; ``MultiheadDiffAttn`` takes its naive path for
-every impl whose core is ``'xla'``; ``build_model`` raises on ``train.remat``.
+every impl whose core is ``'xla'``; ``build_model`` honours ``train.remat``
+for CENet's PVT encoder, and CENetOrg ignores it.
 Small modules only, and no JAX compile: the JAX side is asked only which
 names it accepts.
 """
@@ -95,9 +96,13 @@ def test_presets_do_not_ask_for_remat(preset):
 
 
 def test_build_model_raises_on_remat():
+    """It raised before ``remat`` was ported; now ``train.remat`` builds: a
+    CENet's PVT encoder checkpoints its blocks (``tests/test_torch_remat.py``
+    holds the step), and CENetOrg ignores it, as the JAX package's does."""
     cfg = get_preset("synapse")
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, remat=True))
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        Trainer(cfg, 1, device="cpu")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, encoder="pvt_v2_b0"),
+                      train=dataclasses.replace(cfg.train, remat=True))
+    assert build_model(cfg, device="cpu").backbone.remat is True
+    assert Trainer(cfg, 1, device="cpu").model.backbone.remat is True
+    org = cfg.replace(model=dataclasses.replace(cfg.model, model_version="cenet_org"))
+    assert build_model(org, device="cpu").backbone.remat is False

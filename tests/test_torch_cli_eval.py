@@ -18,6 +18,7 @@ directory:
   of acdc, ham10000 and ph2 on seeded data, each eval's JSON equal to its
   metrics computed directly;
 * the modes and options not ported yet exit naming their ROADMAP item;
+  ``train --model_stats`` logs ``model_cost``'s line;
   a directory without a checkpoint raises ``FileNotFoundError``, an Orbax tag
   directory (or a snapshot that holds one) ``NotImplementedError``; without
   ``--device`` the CLI needs the card.
@@ -52,6 +53,7 @@ from cenet_tpu_torch import native
 from cenet_tpu_torch.cli import main as cli
 from cenet_tpu_torch.core import config as tconfig
 from cenet_tpu_torch.core.checkpoint import load_checkpoint, state_dict_from_npz
+from cenet_tpu_torch.core.stats import model_cost
 from cenet_tpu_torch.data.acdc import ACDCDataset
 from cenet_tpu_torch.data.skin import SkinDataset
 from cenet_tpu_torch.evaluate import nifti as tnifti
@@ -169,11 +171,27 @@ def test_cli_eval_npz_equals_pth(data):
     (["bench", "--preset", "synapse"], "items 1 and 5"),
     (["eval", "--preset", "synapse", "--mesh", "2"], "item 11"),
     (["eval", "--preset", "synapse", "--coordinator", "localhost:1234"], "item 11"),
-    (["train", "--preset", "synapse", "--model_stats"], "item 12"),
 ])
 def test_unported_modes_presets_and_options_exit(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP queue 1 {item}"):
         cli.main(argv)
+
+
+def test_train_model_stats_logs_the_stats_line(slim, tmp_path):
+    """``train --model_stats``, which exited before its port, logs
+    ``print_model_stats``' line for a (1, C, S, S) input at startup, equal to
+    ``model_cost`` of the trained model (one epoch of ACDC at batch 2)."""
+    _write_preset_data("acdc", tmp_path)
+    argv = ["train", "--preset", "acdc", "--encoder", ENCODER, "--device", "cpu", "--no-amp", "--root_path",
+            str(tmp_path), "--list_dir", str(tmp_path), "--output_dir", str(tmp_path / "out"), "--batch_size", "2",
+            "--max_epochs", "1", "--model_stats"]
+    trainer = cli.main(argv)
+    snap = cli.snapshot_path(cli.make_config(cli.build_argparser().parse_args(argv)))
+    with open(os.path.join(snap, "log_train.txt")) as f:
+        lines = [line.split("] ", 1)[-1] for line in f.read().splitlines() if "GFLOPs" in line]
+    cost = model_cost(trainer.model, (1, 1, IMG, IMG))
+    assert lines == [f"model: {cost['params_m']:.2f} M params, {cost['flops_g']:.2f} GFLOPs @ (1, 1, {IMG}, {IMG}), "
+                     f"{cost['bytes_accessed_gb']:.2f} GB accessed"]
 
 
 def _write_preset_data(preset, root):

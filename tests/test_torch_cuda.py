@@ -31,6 +31,12 @@ every dilation on every route of its layout rule and at the train step's size
 classes, with their repeat-run bit-identity; K10 equal to its twin to the bit
 at head dims 6–128 on fp32 tables and on tables in x's dtype.
 
+The one-card training surface: a CENet-b0 step at 224² (its DSEB1, DSEB2 and
+dec1 sites launch K1–K4) with ``train.remat`` equal to the step without it to
+the bit, in a fresh process under the determinism settings; ``model_cost``
+equal on the card and on the CPU, with the sites routed or not; the device
+augmentation on the card against the CPU for the same per-sample choices.
+
 The volume engine's card path: the overlapped chunk pipeline (pinned staging,
 side-stream uploads) gives the serial loop's labels to the bit in bf16 on a
 CENet-b0 (its DSEB and Nonlocal sites launch K1 and K2), a uint16 upload
@@ -44,6 +50,10 @@ JAX, so it runs where only PyTorch is installed:
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1061,3 +1071,78 @@ def test_cuda_volume_staging_buffers_are_reused(cuda):
     bufs = [b[0] for ring in inf.staging._inputs.values() for b in ring]
     bufs += [b for out in inf.staging._outputs.values() for b in out]
     assert len(bufs) == 5 and all(b.is_pinned() for b in bufs)
+
+
+# two steps of CENet-b0 at 224², batch 2, bf16, drop-path 0.1, with and without
+# ``train.remat``, in a fresh process: CUBLAS_WORKSPACE_CONFIG must be set
+# before the process first touches cuBLAS
+_REMAT_STEPS = r"""
+import dataclasses, json, os
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+import numpy as np, torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True)
+from cenet_tpu_torch.core.config import get_preset
+from cenet_tpu_torch.ops import attention_kernels as K
+from cenet_tpu_torch.train.trainer import Trainer
+rng = np.random.default_rng(0)
+x = torch.from_numpy(rng.standard_normal((2, 1, 224, 224)).astype(np.float32)).cuda()
+y = torch.from_numpy(rng.integers(0, 9, (2, 224, 224))).cuda()
+out = {}
+for remat in (False, True):
+    base = get_preset("synapse")
+    cfg = base.replace(model=dataclasses.replace(base.model, encoder="pvt_v2_b0"),
+                       train=dataclasses.replace(base.train, remat=remat))
+    t = Trainer(cfg, 10, device="cuda", model_seed=0)
+    K.reset_launches()
+    losses = [t.train_step(x, y).item() for _ in range(2)]
+    state = {**t.model.state_dict(), **{n + "." + k: v for n, s in t.optimizer.state.items() for k, v in s.items()}}
+    out[remat] = (losses, dict(K.LAUNCHES), state)
+(la, ka, a), (lb, kb, b) = out[False], out[True]
+print(json.dumps({"losses": [la, lb], "launches": [ka, kb], "tensors": len(a),
+                  "unequal": sorted(k for k in a if not torch.equal(a[k], b[k]))}))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_remat_step_equals_the_plain_step(cuda):
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _REMAT_STEPS], cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["losses"][0] == got["losses"][1] and got["unequal"] == [], got
+    assert got["launches"][0] == got["launches"][1] and got["launches"][0]["diff_attention_interleaved_bwd"] == 4, got
+
+
+@pytest.mark.cuda
+def test_cuda_model_cost_equals_the_cpu_count(cuda, monkeypatch):
+    """The card's model reads the CPU's count, with its sites routed as the
+    card routes them and with every site routed."""
+    from cenet_tpu_torch.core.stats import model_cost
+    from cenet_tpu_torch.ops import router
+
+    cfg = get_preset("synapse")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, encoder="pvt_v2_b0"))
+    want = model_cost(build_model(cfg, device="cpu", seed=0), (1, 1, 224, 224))
+    model = build_model(cfg, device=cuda, seed=0)
+    K.reset_launches()
+    assert model_cost(model, (1, 1, 224, 224)) == want
+    monkeypatch.setattr(router, "_SMALL_LIMIT", 0)
+    assert model_cost(model, (1, 1, 224, 224)) == want
+    assert not any(K.LAUNCHES.values()), K.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_cuda_device_augment_matches_the_cpu(cuda):
+    """For the same per-sample choices: labels equal, images within 1e-5 of max |x|."""
+    from cenet_tpu_torch.data import device_augment as DA
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((16, 1, 96, 96)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 9, (16, 96, 96)))
+    choices = DA.draw_choices(torch.Generator(device=cuda).manual_seed(0), 16)
+    img, lab = DA.apply_choices(x.to(cuda), y.to(cuda), choices, 64)
+    want_img, want_lab = DA.apply_choices(x, y, {k: v.cpu() for k, v in choices.items()}, 64)
+    assert torch.equal(lab.cpu(), want_lab)
+    assert float((img.cpu() - want_img).abs().max()) <= 1e-5 * float(want_img.abs().max())

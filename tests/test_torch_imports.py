@@ -90,6 +90,21 @@ def test_model_zoo_modules_import_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+SURFACE_MODULES = ["models.pvtv2", "core.stats", "core.debug", "core.logging_utils", "data.device_augment",
+                   "nn.functional"]
+
+
+def test_training_surface_modules_import_no_jax():
+    """``remat``, the cost count, the debug sweep, the profiler hook and the
+    device augmentation, imported together in one process, import neither JAX
+    nor the JAX package."""
+    code = ("import sys; " + "; ".join(f"import cenet_tpu_torch.{m}" for m in SURFACE_MODULES) + "; print(sorted(m "
+            "for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cenet_tpu', 'orbax')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("version,encoder", [("cenet_org", "pvt_v2_b0"), ("cenet", "resnet50")])
 def test_zoo_models_default_to_the_card(monkeypatch, version, encoder):
     """``build_model`` builds CENetOrg and the ResNet encoders for the card unless
