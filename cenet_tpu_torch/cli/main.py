@@ -31,8 +31,19 @@ snapshot directory's ``best``/``final``/last epoch/latest step
 z_spacing)), and print ``{"mean_dice": …, "mean_hd95": …}``; the skin presets
 run ``skin_test`` over the test split, optionally with contour overlays
 (``--save_figs``), and print ``{"dice": …, "acc": …, "iou": …}``, as the last
-line. What is not ported yet (``bench``, ``--mesh``/``--coordinator``)
-exits with the ROADMAP item that ports it.
+line. What is not ported yet (``bench``, the ``seq`` mesh axis) exits with
+the ROADMAP item that ports it.
+
+``--mesh data[,model]`` runs either mode on the ``('data', 'model')`` mesh of
+``core/mesh.py``, one rank per process and device (``cuda:<local rank>``, or
+the CPU under ``--device cpu``). Launched alone, this process is local rank 0
+and starts the host's other ranks itself, as fresh processes of this module;
+with ``--coordinator host:port``, host ``--process_id i`` of
+``--num_processes P`` takes the global ranks i·L … i·L+L−1 (L ranks a host);
+under ``torchrun`` (``RANK`` set) each process is one rank and starts none.
+Only rank 0 logs, writes checkpoints and figures and prints the JSON line;
+every rank loads. Every rendezvous and collective fails after
+``core.mesh.DEFAULT_TIMEOUT_S``.
 """
 
 from __future__ import annotations
@@ -43,6 +54,9 @@ import dataclasses
 import json
 import logging
 import os
+import subprocess
+import sys
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -50,7 +64,8 @@ import numpy as np
 # what exits, and the ROADMAP queue 1 item that ports it
 NOT_PORTED = {
     "bench": "the bench mode is not ported yet (ROADMAP queue 1 items 1 and 5)",
-    "mesh": "--mesh and --coordinator (multi-device and multi-host runs) are not ported yet (ROADMAP queue 1 item 11)",
+    "seq": "--mesh data,model,seq with seq > 1: the 'seq' axis (ring attention) is not ported yet "
+           "(ROADMAP queue 1 item 11b)",
 }
 
 
@@ -81,7 +96,8 @@ def build_argparser():
     p.add_argument("--eval_interval", type=int, default=None)
     p.add_argument("--throughput", action="store_true")
     p.add_argument("--resume", action="store_true", help="resume from the latest snapshot in the output dir")
-    p.add_argument("--mesh", default=None, help="data[,model[,seq]] device mesh (not ported yet)")
+    p.add_argument("--mesh", default=None,
+                   help="data[,model] mesh, e.g. '2' or '2,2', one rank per device (seq > 1 is not ported yet)")
     # eval-protocol surface (reference scripts/synapse.sh TEST uses scale_factors
     # 1.0,0.75,0.5 vs TRAIN's 0.8,0.4 — FEA depends on these, synapse.sh:74,103)
     p.add_argument("--scale_factors", default=None, help="comma floats, e.g. '1.0,0.75,0.5'")
@@ -95,7 +111,7 @@ def build_argparser():
     p.add_argument("--model_stats", action="store_true",
                    help="FLOPs/bytes of a forward at startup (train only); param count is always printed")
     p.add_argument("--z_spacing", type=int, default=None)
-    # multi-host initialization (not ported yet)
+    # multi-host initialization
     p.add_argument("--coordinator", default=None, help="host:port of process 0")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
@@ -190,10 +206,17 @@ def _save_hooks(args, cfg, snap: str, log: logging.Logger):
 
 
 @contextlib.contextmanager
-def _logging(snap: str, name: str):
-    """``setup_logging`` for one run; its handlers leave the root logger after it."""
+def _logging(snap: str, name: str, lead: bool = True):
+    """``setup_logging`` for one run; its handlers leave the root logger after
+    it. Off the lead rank of a mesh: a logger that writes nothing."""
     from cenet_tpu_torch.core.logging_utils import setup_logging
 
+    if not lead:
+        quiet = logging.getLogger("cenet_tpu_torch.cli.quiet")
+        quiet.propagate = False
+        quiet.handlers = [logging.NullHandler()]
+        yield quiet
+        return
     root = logging.getLogger()
     before = list(root.handlers)
     try:
@@ -248,11 +271,14 @@ def _datasets(cfg, test_set=None):
     return train, val, _test_set(cfg, test_set)
 
 
-def _volume_eval(predict, te_ds, cfg, device, log=None, save_hook=None):
+def _volume_eval(predict, te_ds, cfg, device, log=None, save_hook=None, mesh=None):
     """Volume evaluation (``cenet_tpu/cli/main.py::_volume_eval``): (mean dice,
     mean HD95) of ``predict`` over ``te_ds.volumes()``; Synapse normalises its
     input, ACDC does not and computes the full metrics (dice, HD95, Jaccard,
-    ASD), as the JAX CLI sets them by dataset."""
+    ASD), as the JAX CLI sets them by dataset. Under a mesh every rank runs
+    the predictions (``predict`` shares each chunk over the data axis), rank 0
+    the metrics, and every rank returns rank 0's."""
+    from cenet_tpu_torch.core.mesh import broadcast_floats
     from cenet_tpu_torch.evaluate.volume import VolumeInferenceConfig, VolumeInferencer, run_inference
 
     dataset = cfg.data.dataset
@@ -262,7 +288,10 @@ def _volume_eval(predict, te_ds, cfg, device, log=None, save_hook=None):
                               num_classes=cfg.model.num_classes),
         device=device,
     )
-    return run_inference(inf, list(te_ds.volumes()), full_metrics=dataset == "acdc", log=log, save_hook=save_hook)
+    lead = mesh is None or mesh.rank == 0
+    result = run_inference(inf, list(te_ds.volumes()), full_metrics=dataset == "acdc", log=log, save_hook=save_hook,
+                           metrics=lead)
+    return result if mesh is None else tuple(broadcast_floats(result or (0.0, 0.0), mesh.device))
 
 
 def _acdc_val(predict, vl_ds, cfg, device) -> float:
@@ -333,11 +362,26 @@ def _overlay_hook(args, snap: str, log: logging.Logger):
     return save_hook
 
 
-def run_train(cfg, args, test_set=None):
+class _NullWriter:
+    """The scalar writer of a rank that writes nothing."""
+
+    def scalar(self, *args):
+        pass
+
+    def image(self, *args):
+        pass
+
+    def close(self):
+        pass
+
+
+def run_train(cfg, args, test_set=None, mesh=None):
     """Training on ``args.device`` (``cenet_tpu/cli/main.py::run_train``) with
     the eval and checkpoint policy of ``cfg.data.dataset``; returns the
     :class:`Trainer`. ``test_set`` replaces Synapse's ``test_vol`` list of
-    the snapshot evals, as in :func:`run_eval`."""
+    the snapshot evals, as in :func:`run_eval`. Under ``mesh`` this is one
+    rank: its loader builds its rows of each batch, and rank 0 alone logs,
+    writes and prints."""
     import torch
 
     from cenet_tpu_torch.core.checkpoint import CheckpointManager, load_pretrained_encoder
@@ -349,19 +393,22 @@ def run_train(cfg, args, test_set=None):
     from cenet_tpu_torch.evaluate.visualize import plot_metric_curves
     from cenet_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
     snap = snapshot_path(cfg)
-    with _logging(snap, "train") as log:
+    with _logging(snap, "train", lead) as log:
         log.info("config: %s", cfg)
-        writer = ScalarWriter(os.path.join(snap, "tb"))
+        writer = ScalarWriter(os.path.join(snap, "tb")) if lead else _NullWriter()
         d = cfg.data
         tr_ds, vl_ds, te_ds = _datasets(cfg, test_set)
         bs = cfg.train.batch_size
         iters_per_epoch = len(tr_ds) // bs
         max_iterations = cfg.train.max_epochs * iters_per_epoch
-        trainer = Trainer(cfg, max_iterations, iters_per_epoch=iters_per_epoch, device=device)
+        trainer = Trainer(cfg, max_iterations, iters_per_epoch=iters_per_epoch, device=device, mesh=mesh)
         log.info("model: %.2f M params", count_params(trainer.model) / 1e6)
-        if args.model_stats:  # the same count on the card as on the CPU (core/stats.py)
+        if mesh is not None:
+            log.info("mesh: data=%d model=%d, %d sharded tensors", mesh.data, mesh.model, len(trainer.tp_plan))
+        if args.model_stats and lead:  # the same count on the card as on the CPU (core/stats.py)
             print_model_stats(trainer.model, (1, cfg.model.input_channels, d.img_size, d.img_size), log=log.info)
         pretrained = args.pretrained_pth
         if not pretrained and cfg.model.enc_pretrain:
@@ -373,13 +420,14 @@ def run_train(cfg, args, test_set=None):
             else:
                 log.warning("enc_pretrain=True but %s not found; training from scratch", cand)
         if pretrained:
-            load_pretrained_encoder(trainer.model, pretrained)
+            load_pretrained_encoder(trainer.model, pretrained, mesh=mesh, plan=trainer.tp_plan)
             log.info("loaded pretrained encoder from %s", pretrained)
 
         spc_cfg = max(cfg.train.steps_per_call, 1)
         loader = Loader(len(tr_ds), tr_ds.get_train, bs, seed=cfg.train.seed, num_threads=d.num_workers,
-                        prefetch=spc_cfg + 2, put_fn=device_put_fn(device))
-        ckpt = CheckpointManager(snap, keep=cfg.train.ckpt_keep)
+                        prefetch=spc_cfg + 2, put_fn=device_put_fn(device),
+                        rows=None if mesh is None else (mesh.d, mesh.data))
+        ckpt = CheckpointManager(snap, keep=cfg.train.ckpt_keep, write=lead)
         meter = Throughput()
         best_val = best_test = 0.0
         it = 0
@@ -456,7 +504,7 @@ def run_train(cfg, args, test_set=None):
             if d.dataset == "synapse":
                 if (epoch + 1) >= cfg.train.max_epochs // 2 and (epoch + 1) % cfg.train.eval_interval == 0:
                     ckpt.save(it, trainer, tag=f"epoch{epoch + 1}")
-                    dice, hd = _volume_eval(trainer.eval_step, te_ds, cfg, device)
+                    dice, hd = _volume_eval(trainer.eval_step, te_ds, cfg, device, mesh=mesh)
                     writer.scalar("info/test_dice", dice, it)
                     writer.scalar("info/test_hd95", hd, it)
                     curve_dice.append(dice)
@@ -470,7 +518,7 @@ def run_train(cfg, args, test_set=None):
                 log.info("epoch %d val dice %.4f", epoch, val_d)
                 if val_d > best_val:
                     best_val = val_d
-                    dice, hd = _volume_eval(trainer.eval_step, te_ds, cfg, device)
+                    dice, hd = _volume_eval(trainer.eval_step, te_ds, cfg, device, mesh=mesh)
                     curve_hd[-1] = hd
                     log.info("epoch %d test dice %.4f hd95 %.4f", epoch, dice, hd)
                     if dice > best_test:
@@ -495,29 +543,32 @@ def run_train(cfg, args, test_set=None):
             # boundary with optimizer momentum intact
             ckpt.save(it, trainer)
         ckpt.save(it, trainer, tag="final")
-        if curve_dice:
+        if curve_dice and lead:
             # end-of-training dice/hd95 curves + tsv (utils.py:18-37 via main_acdc.py:292)
             plot_metric_curves(curve_dice, curve_hd, snap)
             log.info("metric curves saved to %s/result.png|.tsv", snap)
         writer.close()
         log.info("training done; throughput %.1f img/s", meter.images_per_sec)
-    if args.throughput:
+    if args.throughput and lead:
         print(json.dumps({"metric": "train_images_per_sec", "value": meter.images_per_sec}), flush=True)
     return trainer
 
 
-def run_eval(cfg, args, test_set=None) -> dict:
+def run_eval(cfg, args, test_set=None, mesh=None) -> dict:
     """Evaluation of ``args.checkpoint`` (a file, or a snapshot directory;
     without it the configuration's own snapshot) on ``args.device`` over the
     test split: Synapse and ACDC volumes print and return ``{"mean_dice",
     "mean_hd95"}``, the skin presets ``{"dice", "acc", "iou"}``. ``test_set``
     (anything with ``volumes()`` yielding {image, label, case_name}) replaces
-    Synapse's ``test_vol`` list under ``cfg.data``."""
+    Synapse's ``test_vol`` list under ``cfg.data``. Under ``mesh`` every rank
+    loads the weights (its heads of the sharded sites), forwards its rows of
+    each chunk or batch, and returns rank 0's metrics; rank 0 prints them."""
     import torch
 
     from cenet_tpu_torch.core.checkpoint import load_checkpoint, snapshot_checkpoint
     from cenet_tpu_torch.core.device import resolve_device
-    from cenet_tpu_torch.evaluate.predict import make_predict_fn
+    from cenet_tpu_torch.core.mesh import broadcast_floats, shard_model_
+    from cenet_tpu_torch.evaluate.predict import make_predict_fn, shard_rows
     from cenet_tpu_torch.evaluate.skin import skin_test
     from cenet_tpu_torch.models.cenet import build_model
 
@@ -527,34 +578,119 @@ def run_eval(cfg, args, test_set=None) -> dict:
         ckpt = snapshot_checkpoint(ckpt)  # best, final, the last epoch, the latest step
     if not os.path.isfile(ckpt):
         raise FileNotFoundError(f"no checkpoint in {ckpt}; pass --checkpoint")
-    device = resolve_device(args.device)
-    with _logging(snap, "eval") as log:
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
+    with _logging(snap, "eval", lead) as log:
         te_ds = _test_set(cfg, test_set)
         model = build_model(cfg, device=device, seed=cfg.train.seed)
         load_checkpoint(model, ckpt, cfg.model.model_version)
         log.info("loaded checkpoint %s on %s", ckpt, device)
         compute_dtype = torch.bfloat16 if cfg.train.amp else torch.float32  # cenet_tpu/train/trainer.py:112
         predict = make_predict_fn(model, compute_dtype)
+        if mesh is not None:
+            plan = shard_model_(model, mesh)
+            log.info("mesh: data=%d model=%d, %d sharded tensors", mesh.data, mesh.model, len(plan))
+            predict = shard_rows(predict, mesh)
         if cfg.data.dataset in ("synapse", "acdc"):
-            dice, hd = _volume_eval(predict, te_ds, cfg, device, log=log, save_hook=_save_hooks(args, cfg, snap, log))
+            hooks = _save_hooks(args, cfg, snap, log) if lead else None
+            dice, hd = _volume_eval(predict, te_ds, cfg, device, log=log, save_hook=hooks, mesh=mesh)
             result = {"mean_dice": dice, "mean_hd95": hd}
         else:
             dice, acc, iou = skin_test(predict, _skin_batches(te_ds, cfg.train.batch_size, device),
-                                       save_hook=_overlay_hook(args, snap, log))
+                                       save_hook=_overlay_hook(args, snap, log) if lead else None)
+            if mesh is not None:  # every rank computed them from the same gathered labels; rank 0's hold
+                dice, acc, iou = broadcast_floats((dice, acc, iou), mesh.device)
             log.info("test dice %.4f acc %.4f iou %.4f", dice, acc, iou)
             result = {"dice": dice, "acc": acc, "iou": iou}
-    print(json.dumps(result), flush=True)
+    if lead:
+        print(json.dumps(result), flush=True)
     return result
+
+
+def _mesh_config(args):
+    from cenet_tpu_torch.core.mesh import MeshConfig
+
+    parts = [int(x) for x in args.mesh.split(",")] if args.mesh else [-1]
+    if len(parts) > 3:
+        raise SystemExit(f"--mesh {args.mesh}: at most data,model,seq")
+    data, model, seq = (parts + [1, 1])[:3]
+    if seq > 1:
+        raise SystemExit(NOT_PORTED["seq"])
+    return MeshConfig(data=data, model=model)
+
+
+def _run_rank(args, test_set, mcfg, coordinator: str, world: int, rank: int, local_rank: int):
+    """One rank of a mesh run: join the process group, make the mesh, run the mode, leave."""
+    from cenet_tpu_torch.core.mesh import init_distributed, make_mesh, shutdown_distributed
+
+    device = "cpu" if args.device == "cpu" else f"cuda:{local_rank}"
+    init_distributed(coordinator, world, rank, device=device)
+    try:
+        mesh = make_mesh(mcfg, device=device)
+        cfg = make_config(args)
+        np.random.seed(cfg.train.seed)
+        if args.mode == "train":
+            return run_train(cfg, args, test_set, mesh=mesh)
+        return run_eval(cfg, args, test_set, mesh=mesh)
+    finally:
+        shutdown_distributed()
+
+
+def run_meshed(args, argv: Sequence[str], test_set=None):
+    """A ``--mesh``/``--coordinator`` run (or one rank of one under ``torchrun``):
+    this process is one rank; launched alone, it starts the host's other ranks
+    as fresh processes of this module (``RANK`` set for each) and waits for them
+    after its own."""
+    import torch
+
+    from cenet_tpu_torch.core import mesh as M
+
+    mcfg = _mesh_config(args)
+    if "RANK" in os.environ:  # torchrun, or a rank that a launch of this CLI started
+        coordinator = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+        return _run_rank(args, test_set, mcfg, coordinator, int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+                         int(os.environ.get("LOCAL_RANK", 0)))
+    if args.coordinator and (args.num_processes is None or args.process_id is None):
+        raise SystemExit("--coordinator needs --num_processes and --process_id (one command line per host)")
+    hosts, host = args.num_processes or 1, args.process_id or 0
+    cuda = torch.device(args.device).type == "cuda"
+    devices = torch.cuda.device_count() if cuda else 1
+    world = mcfg.data * max(mcfg.model, 1) if mcfg.data > 0 else hosts * devices
+    if world % hosts:
+        raise SystemExit(f"--mesh {args.mesh}: {world} ranks do not split over {hosts} hosts")
+    local = world // hosts
+    if cuda and local > devices:
+        raise SystemExit(f"NCCL runs one rank per card: {local} ranks on this host but {devices} cards")
+    coordinator = args.coordinator or f"127.0.0.1:{M.free_port()}"
+    addr, port = coordinator.rsplit(":", 1)
+    root = str(Path(__file__).resolve().parents[2])
+    env = {**os.environ, "WORLD_SIZE": str(world), "MASTER_ADDR": addr, "MASTER_PORT": port,
+           "PYTHONPATH": os.pathsep.join([root] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    children = [subprocess.Popen([sys.executable, "-m", "cenet_tpu_torch.cli.main", *argv],
+                                 env={**env, "RANK": str(host * local + j), "LOCAL_RANK": str(j)})
+                for j in range(1, local)]
+    try:
+        result = _run_rank(args, test_set, mcfg, coordinator, world, host * local, 0)
+        for c in children:
+            if c.wait(timeout=M.DEFAULT_TIMEOUT_S) != 0:
+                raise RuntimeError(f"a rank of the mesh exited with {c.returncode}")
+        return result
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait(timeout=30)
 
 
 def main(argv: Optional[Sequence[str]] = None, test_set=None):
     """Parse ``argv`` and run ``train`` (returns the :class:`Trainer`) or ``eval``
     (returns its metrics). ``test_set`` replaces Synapse's ``test_vol`` list."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_argparser().parse_args(argv)
     if args.mode == "bench":
         raise SystemExit(NOT_PORTED["bench"])
-    if args.mesh or args.coordinator:
-        raise SystemExit(NOT_PORTED["mesh"])
+    if args.mesh or args.coordinator or "RANK" in os.environ:
+        return run_meshed(args, argv, test_set)
     cfg = make_config(args)
     np.random.seed(cfg.train.seed)
     if args.mode == "train":

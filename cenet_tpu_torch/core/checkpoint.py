@@ -47,6 +47,7 @@ import torch
 import torch.nn as nn
 
 from cenet_tpu_torch.convert.jax2torch import state_dict_from_jax
+from cenet_tpu_torch.core.mesh import shard_tensor
 
 ORBAX_NOT_PORTED = ("restoring an Orbax checkpoint directory (the JAX package's tags and steps) is not ported yet "
                     "(ROADMAP queue 1 item 12); pass a .pth or .npz file or a snapshot of the port")
@@ -68,13 +69,17 @@ def _to_cpu(tree):
 
 class CheckpointManager:
     """Step-indexed snapshots and named tags (``best``, ``final``, ``epochN``)
-    of a :class:`~cenet_tpu_torch.train.trainer.Trainer`'s whole state."""
+    of a :class:`~cenet_tpu_torch.train.trainer.Trainer`'s whole state. Under a
+    mesh every rank calls :meth:`save` (the trainer gathers its state), and
+    only the manager made with ``write`` (rank 0's) writes; every rank reads,
+    and a state written under one mesh restores under any other."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, write: bool = True):
         self.directory = os.path.abspath(directory)
         self.steps_dir = os.path.join(self.directory, "steps")
         os.makedirs(self.steps_dir, exist_ok=True)
         self.keep = keep
+        self.write = write  # under a mesh: every rank saves (the state is gathered), rank 0 writes
 
     # -- save -----------------------------------------------------------------
 
@@ -82,8 +87,11 @@ class CheckpointManager:
         """A tag file when ``tag`` is given (replacing one of that name), else a
         step file, after which only the ``keep`` latest step files remain."""
         path = self.tag_path(tag) if tag is not None else self.step_path(step)
+        state = _to_cpu(trainer.state_dict())
+        if not self.write:
+            return
         tmp = path + ".tmp"
-        torch.save(_to_cpu(trainer.state_dict()), tmp)
+        torch.save(state, tmp)
         os.replace(tmp, path)  # no half-written checkpoint under the final name
         if tag is None:
             for old in self.all_steps()[: -self.keep]:
@@ -213,16 +221,22 @@ def load_checkpoint(model: nn.Module, path: str, model_version: str = "cenet") -
     return model
 
 
-def load_pretrained_encoder(model: nn.Module, pth_path: str, encoder_prefix: str = "backbone") -> Dict[str, List[str]]:
+def load_pretrained_encoder(model: nn.Module, pth_path: str, encoder_prefix: str = "backbone",
+                            mesh=None, plan=None) -> Dict[str, List[str]]:
     """Load a torch PVT or ResNet (torchvision keys) checkpoint into
     ``model.<encoder_prefix>``, filtered like the reference (``encoder.py:75-84``:
     only the keys the backbone has), with a loud report instead of a silent
     skip. Returns ``{"missing": backbone keys the file lacks, "unused": file
-    keys the backbone lacks}``."""
+    keys the backbone lacks}``. On a head-sharded model (``mesh`` and its
+    ``plan``, ``core/mesh.py::shard_model_``) the rank's pieces are loaded."""
     sd = load_torch_state_dict(pth_path)
     backbone = getattr(model, encoder_prefix)
     own = backbone.state_dict()
     found = {k: v for k, v in sd.items() if k in own}
+    for k, v in found.items():
+        rule = (plan or {}).get(f"{encoder_prefix}.{k}")
+        if rule is not None:
+            found[k] = shard_tensor(v, *rule, mesh.m, mesh.model)
     backbone.load_state_dict({**own, **found}, strict=True)
     report = {"missing": sorted(set(own) - set(found)), "unused": sorted(set(sd) - set(own))}
     if report["missing"]:

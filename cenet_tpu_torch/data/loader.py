@@ -14,7 +14,7 @@ or to the device the caller names.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, Optional, Union
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,7 +53,10 @@ class Loader:
 
     ``get_sample(idx, rng)`` → dict of numpy arrays (other values are collected
     in lists). Batches are stacked and passed through ``put_fn`` on the loader
-    thread.
+    thread. With ``rows=(index, parts)`` (a rank's data position and the data
+    axis) only part ``index`` of each global batch of ``batch_size`` is built:
+    the per-sample generators make them the rows that the one-process loader
+    builds there.
     """
 
     def __init__(
@@ -66,7 +69,10 @@ class Loader:
         num_threads: int = 4,
         prefetch: int = 2,
         put_fn: Optional[Callable] = None,
+        rows: Optional[Tuple[int, int]] = None,
     ):
+        if rows is not None and batch_size % rows[1]:
+            raise ValueError(f"a batch of {batch_size} does not split over {rows[1]} data ranks")
         self.n = n_samples
         self.get_sample = get_sample
         self.bs = batch_size
@@ -75,6 +81,7 @@ class Loader:
         self.num_threads = num_threads
         self.prefetch = prefetch
         self.put_fn = put_fn
+        self.rows = rows
 
     def __len__(self):
         return self.n // self.bs if self.drop_last else -(-self.n // self.bs)
@@ -88,6 +95,10 @@ class Loader:
 
         def build_batch(b):
             idxs = order[b * self.bs : (b + 1) * self.bs]
+            if self.rows is not None:
+                index, parts = self.rows
+                n = len(idxs) // parts
+                idxs = idxs[index * n : (index + 1) * n]
             samples = [self.get_sample(int(i), sample_rng(i)) for i in idxs]
             batch = {}
             for k in samples[0]:

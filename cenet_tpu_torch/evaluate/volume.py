@@ -307,20 +307,28 @@ def run_inference(
     full_metrics: bool = False,
     log: Optional[logging.Logger] = None,
     save_hook: Optional[Callable] = None,
-) -> Tuple[float, float]:
+    metrics: bool = True,
+) -> Optional[Tuple[float, float]]:
     """Aggregate per-case metrics like the reference ``inference``
     (``utils_synapse.py:151-168``): per-class means over cases, then overall means.
-    ``save_hook(case, pred)`` runs after each case. Returns (mean_dice, mean_hd95)."""
+    ``save_hook(case, pred)`` runs after each case. Returns (mean_dice, mean_hd95).
+    Without ``metrics`` only the predictions run (the ranks of a mesh other than
+    rank 0, whose predictions take part in every chunk's gather), and it returns None."""
     log = log or logging.getLogger(__name__)
     metric_sum = None
     for i, case in enumerate(cases):
-        pred, metrics = inferencer.evaluate_case(case["image"], case["label"], full_metrics)
-        arr = np.array(metrics, dtype=np.float64)
+        if not metrics:
+            inferencer.predict_volume(case["image"])
+            continue
+        pred, case_metrics = inferencer.evaluate_case(case["image"], case["label"], full_metrics)
+        arr = np.array(case_metrics, dtype=np.float64)
         metric_sum = arr if metric_sum is None else metric_sum + arr
         log.info(" idx %d case %s mean_dice %f mean_hd95 %f",
                  i, case.get("case_name", str(i)), arr[:, 0].mean(), arr[:, 1].mean())
         if save_hook is not None:
             save_hook(case, pred)
+    if not metrics:
+        return None
     metric_mean = metric_sum / len(cases)
     for c in range(metric_mean.shape[0]):
         log.info("Mean class %d -> mean_dice: %f, mean_hd95: %f", c + 1, metric_mean[c, 0], metric_mean[c, 1])

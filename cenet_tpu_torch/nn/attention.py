@@ -5,16 +5,30 @@ names (:func:`get_attention_core`): ``'xla'`` selects the naive full-map path
 (the parity path of the JAX package), ``'chunked'`` plain math of the same
 numerics, and ``'pallas'`` the routes of :mod:`cenet_tpu_torch.ops.router`,
 which send large maps on the card to the CUDA kernels.
+
+Tensor parallelism: :class:`SRAAttention`, :class:`MultiheadDiffAttn` and
+:class:`MultiheadDiffAttnCross` take their rank's heads in ``shard_heads_(mesh)``
+when the mesh's model axis divides them (``core/mesh.py::shard_model_``), as
+JAX's ``TP_ATTENTION_RULES`` shard them: q/k/v (and SRA's q, and both halves
+of its kv) are column-parallel and keep their rows of the weights, the
+output projection is row-parallel and keeps its columns. Their inputs pass
+``copy_to_model`` (gradients summed over the model group), the output
+projection's partial products ``reduce_from_model`` (its bias added once
+after), and λ stays whole with its gradient summed over the group. The cores
+run on the local heads with ``head_local=True``. A module whose heads do not
+divide stays replicated.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from cenet_tpu_torch.core import mesh as M
 from cenet_tpu_torch.nn import functional as F
 from cenet_tpu_torch.nn.layers import TRUNC_NORMAL, BatchNorm, Conv2d, Dropout, LayerNorm, Linear, RMSNorm
 from cenet_tpu_torch.ops import rotary, router
@@ -25,25 +39,83 @@ def get_attention_core(impl: str) -> Callable:
     ``cenet_tpu/nn/attention.py::get_attention_core`` maps them: ``'xla'``, and
     ``'chunked'`` (the JAX package's query-block scan, whose numerics are the
     naive ones and which never reaches a kernel), give plain math; ``'pallas'``
-    the routed core. ``'ring'`` and an ``'@axis'`` suffix raise
-    ``NotImplementedError`` (sequence and tensor parallelism are not ported,
-    ROADMAP queue 1 item 11); any other name raises ``ValueError``."""
+    the routed core. An ``'@axis'`` suffix wraps the core in
+    ``router.shard_heads``, which is the bare core unless a registered mesh's
+    axis divides the heads. ``'ring'`` raises ``NotImplementedError``
+    (sequence parallelism, ROADMAP queue 1 item 11b); any other name raises
+    ``ValueError``."""
     core, axis = router.parse_impl(impl)
     if core not in ("xla", "chunked", "pallas", "ring"):
         raise ValueError(f"unknown attention impl: {impl}")
-    if core == "ring" or axis is not None:
-        raise NotImplementedError(f"attention impl {impl!r}: ring attention and '@axis' tensor parallelism are "
-                                  "not ported yet (ROADMAP queue 1 item 11)")
-    return router.flash_attention_core if core == "pallas" else router.plain_attention
+    if core == "ring":
+        raise NotImplementedError(f"attention impl {impl!r}: ring attention (the 'seq' mesh axis) is not ported "
+                                  "yet (ROADMAP queue 1 item 11b)")
+    return router.shard_heads(router.flash_attention_core if core == "pallas" else router.plain_attention, axis)
 
 
-class SRAAttention(nn.Module):
+def _local_core(impl: str) -> Callable:
+    """The bare core of ``impl`` for a head-sharded module's local heads."""
+    core = get_attention_core(router.parse_impl(impl)[0])
+    return functools.partial(core, head_local=True) if core is router.flash_attention_core else core
+
+
+def _shard_param_(module: nn.Module, key: str, dim: int, parts: int, mesh: "M.Mesh") -> None:
+    """Replace ``module``'s parameter ``key`` (``"q.weight"``) by the rank's piece."""
+    owner_name, name = key.rsplit(".", 1)
+    owner = module.get_submodule(owner_name)
+    p = getattr(owner, name)
+    if p is None:
+        return
+    setattr(owner, name, nn.Parameter(M.shard_tensor(p.detach(), dim, parts, mesh.m, mesh.model),
+                                      requires_grad=p.requires_grad))
+    if isinstance(owner, nn.Linear) and name == "weight":
+        owner.out_features, owner.in_features = owner.weight.shape
+
+
+class _HeadSharded:
+    """``shard_heads_`` and the row-parallel output of the head-sharded modules;
+    ``TP_PLAN`` maps their parameters to (dim, parts) as ``TP_ATTENTION_RULES`` does."""
+
+    TP_PLAN: Dict[str, Tuple[int, int]] = {}
+    tp: Optional["M.Mesh"] = None  # the mesh whose model axis holds the heads, once sharded
+
+    def _divides(self, model: int) -> bool:
+        return self.num_heads % model == 0
+
+    def shard_heads_(self, mesh: "M.Mesh") -> bool:
+        """Keep the rank's heads when ``mesh.model`` divides them; whether it did."""
+        if mesh.model == 1 or not self._divides(mesh.model):
+            return False
+        for key, (dim, parts) in self.TP_PLAN.items():
+            _shard_param_(self, key, dim, parts, mesh)
+        self.tp = mesh
+        return True
+
+    def _group(self):
+        return None if self.tp is None else self.tp.model_group
+
+    def _heads(self, h: int) -> int:
+        return h if self.tp is None else h // self.tp.model
+
+    def _row_parallel(self, proj: "Linear", x: torch.Tensor) -> torch.Tensor:
+        """``proj(x)`` where x holds the rank's input columns: the partial
+        product summed over the model group, the bias added once."""
+        if self.tp is None:
+            return proj(x)
+        y = M.reduce_from_model(torch.nn.functional.linear(x, proj.weight.to(x.dtype)), self._group())
+        return y if proj.bias is None else y + proj.bias.to(x.dtype)
+
+
+class SRAAttention(_HeadSharded, nn.Module):
     """PVTv2 spatial-reduction attention (reference ``pvtv2.py:50-109``) on tokens
     (B, N, C) of an H×W map; with ``sr_ratio > 1`` the KV stream is downsampled by
     a strided conv and a LayerNorm first. ``attn_drop`` drops attention weights
     after the softmax in train mode, which only the naive ``'xla'`` path
     materialises (``cenet_tpu/nn/attention.py:98-113``: other impls raise);
-    ``proj_drop`` drops the projected output."""
+    ``proj_drop`` drops the projected output. Head-sharded over a mesh's model
+    axis when it divides ``num_heads`` (see the module's docstring)."""
+
+    TP_PLAN = {"q.weight": (0, 1), "q.bias": (0, 1), "kv.weight": (0, 2), "kv.bias": (0, 2), "proj.weight": (1, 1)}
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, sr_ratio: int = 1, attn_impl: str = "xla"):
@@ -63,27 +135,30 @@ class SRAAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         B, N, C = x.shape
-        h = self.num_heads
-        hd = C // h
+        h = self._heads(self.num_heads)
+        hd = C // self.num_heads
         scale = F.round_to(self.qk_scale or hd**-0.5, x.dtype)
-        q = self.q(x).reshape(B, N, h, hd).transpose(1, 2)
+        q = self.q(M.copy_to_model(x, self._group())).reshape(B, N, h, hd).transpose(1, 2)
         if self.sr_ratio > 1:
             x_ = x.transpose(1, 2).reshape(B, C, H, W)
             x_ = self.sr(x_).flatten(2).transpose(1, 2)
             x_ = self.norm(x_)
         else:
             x_ = x
-        M = x_.shape[1]
-        kv = self.kv(x_).reshape(B, M, 2, h, hd).permute(2, 0, 3, 1, 4)
+        kv = self.kv(M.copy_to_model(x_, self._group())).reshape(B, x_.shape[1], 2, h, hd).permute(2, 0, 3, 1, 4)
         if self.attn_drop.rate > 0.0 and self.training:
             if self.attn_impl != "xla":
                 raise NotImplementedError(f"attn_drop={self.attn_drop.rate} > 0 requires attn_impl='xla': the other "
                                           "cores never materialise the attention weights")
+            if self.tp is not None:
+                raise NotImplementedError("attn_drop > 0 on head-sharded weights: the masks would not be the "
+                                          "one process's")
             weights = F.softmax_fp32(torch.matmul(q * scale, kv[0].transpose(-1, -2)))
             out = torch.matmul(self.attn_drop(weights), kv[1])
         else:
-            out = get_attention_core(self.attn_impl)(q * scale, kv[0], kv[1])
-        return self.proj_drop(self.proj(out.transpose(1, 2).reshape(B, N, C)))
+            core = get_attention_core(self.attn_impl) if self.tp is None else _local_core(self.attn_impl)
+            out = core(q * scale, kv[0], kv[1])
+        return self.proj_drop(self._row_parallel(self.proj, out.transpose(1, 2).reshape(B, N, h * hd)))
 
 
 def lambda_init_fn(depth: int) -> float:
@@ -106,7 +181,22 @@ def diff_attention_naive(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lam
     return torch.matmul(weights, v)
 
 
-class MultiheadDiffAttn(nn.Module):
+_DIFF_TP_PLAN = {"q_proj.weight": (0, 1), "k_proj.weight": (0, 1), "v_proj.weight": (0, 1), "out_proj.weight": (1, 1)}
+
+
+def _lambda_full(mod: nn.Module, group, dtype: torch.dtype) -> torch.Tensor:
+    """exp(λ_q1·λ_k1) − exp(λ_q2·λ_k2) + λ_init in ``dtype``; on a head-sharded
+    module the λ vectors pass ``copy_to_model`` together, so their gradient is
+    the sum of every rank's heads'."""
+    q1, k1, q2, k2 = mod.lambda_q1, mod.lambda_k1, mod.lambda_q2, mod.lambda_k2
+    if group is not None:
+        q1, k1, q2, k2 = M.copy_to_model(torch.stack([q1, k1, q2, k2]), group).unbind(0)
+    lambda_1 = torch.exp(torch.sum(q1 * k1))
+    lambda_2 = torch.exp(torch.sum(q2 * k2))
+    return (lambda_1 - lambda_2 + mod.lambda_init).to(dtype)
+
+
+class MultiheadDiffAttn(_HeadSharded, nn.Module):
     """DIFF-Transformer attention (reference ``multihead_diffattn.py:32-129``).
 
     Non-causal; the two softmax groups (even/odd interleaved heads) combine as
@@ -117,8 +207,12 @@ class MultiheadDiffAttn(nn.Module):
     ``use_rotary`` it is the (cos, sin) tables of :func:`rotary.make_rotary_tables`,
     and interleaved rotary turns q and k before the attention. Without
     ``use_rotary`` it is a bias added to the combined weights A₁ − λ·A₂, which
-    takes the naive full-map path. Neither adds a parameter.
+    takes the naive full-map path. Neither adds a parameter. Head-sharded over
+    a mesh's model axis when it divides both head counts: each rank keeps
+    whole pairs of interleaved q/k heads (``2h % (2·model) == 0``).
     """
+
+    TP_PLAN = _DIFF_TP_PLAN
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int, num_kv_heads: int = None,
                  attn_impl: str = "xla", use_rotary: bool = False):
@@ -145,12 +239,16 @@ class MultiheadDiffAttn(nn.Module):
             for t in (self.lambda_q1, self.lambda_k1, self.lambda_q2, self.lambda_k2):
                 t.normal_(0.0, 0.1, generator=generator)
 
+    def _divides(self, model: int) -> bool:
+        return self.num_heads % model == 0 and self.num_kv_heads % model == 0
+
     def forward(self, x: torch.Tensor, rel_pos=None) -> torch.Tensor:
         B, N, E = x.shape
-        h, hkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
-        q = self.q_proj(x).reshape(B, N, 2 * h, hd).transpose(1, 2)
-        k = self.k_proj(x).reshape(B, N, 2 * hkv, hd).transpose(1, 2)
-        v = self.v_proj(x).reshape(B, N, hkv, 2 * hd).transpose(1, 2)
+        h, hkv, hd = self._heads(self.num_heads), self._heads(self.num_kv_heads), self.head_dim
+        xc = M.copy_to_model(x, self._group())
+        q = self.q_proj(xc).reshape(B, N, 2 * h, hd).transpose(1, 2)
+        k = self.k_proj(xc).reshape(B, N, 2 * hkv, hd).transpose(1, 2)
+        v = self.v_proj(xc).reshape(B, N, hkv, 2 * hd).transpose(1, 2)
         if self.use_rotary and rel_pos is not None:
             cos, sin = rel_pos
             q = rotary.apply_rotary_emb(q, cos, sin, interleaved=True)
@@ -159,9 +257,7 @@ class MultiheadDiffAttn(nn.Module):
             k = k.repeat_interleave(self.n_rep, dim=1)
             v = v.repeat_interleave(self.n_rep, dim=1)
 
-        lambda_1 = torch.exp(torch.sum(self.lambda_q1 * self.lambda_k1))
-        lambda_2 = torch.exp(torch.sum(self.lambda_q2 * self.lambda_k2))
-        lambda_full = (lambda_1 - lambda_2 + self.lambda_init).to(x.dtype)
+        lambda_full = _lambda_full(self, self._group(), x.dtype)
 
         qs = q * F.round_to(hd**-0.5, q.dtype)
         bias = rel_pos is not None and not self.use_rotary
@@ -169,20 +265,20 @@ class MultiheadDiffAttn(nn.Module):
         if core == "xla" or bias:
             attn = diff_attention_naive(qs, k, v, lambda_full, rel_pos if bias else None)
         else:
-            get_attention_core(self.attn_impl)  # raises on an unknown name, 'ring' and '@axis'
+            get_attention_core(self.attn_impl)  # raises on an unknown name and 'ring'
             if core == "chunked":
                 # the JAX router's split groups in plain math, never a kernel
                 attn = router.diff_attention_plain(qs[:, 0::2], k[:, 0::2], qs[:, 1::2], k[:, 1::2], v,
                                                    lambda_full.float())
             else:
-                attn = router.diff_attention_interleaved(qs, k, v, lambda_full.float())
+                attn = router.diff_attention_interleaved(qs, k, v, lambda_full.float(), head_local=self.tp is not None)
 
         attn = self.subln(attn) * (1 - self.lambda_init)
         attn = attn.transpose(1, 2).reshape(B, N, h * 2 * hd)
-        return self.out_proj(attn)
+        return self._row_parallel(self.out_proj, attn)
 
 
-class MultiheadDiffAttnCross(nn.Module):
+class MultiheadDiffAttnCross(_HeadSharded, nn.Module):
     """Cross-attention differential attention (reference
     ``multihead_diffattn.py:131-367``; ``cenet_tpu/nn/attention.py:246-312``).
 
@@ -191,8 +287,11 @@ class MultiheadDiffAttnCross(nn.Module):
     ``q_src`` are NCHW maps tokenised by the reference's raw ``.view``. Each
     softmax group goes through the attention core with the shared v (dv = 2d):
     plain math for ``'xla'`` and ``'chunked'``, the routed core (K2 on the card
-    above the router's limit) for ``'pallas'``.
+    above the router's limit) for ``'pallas'``. Head-sharded over a mesh's
+    model axis when it divides ``num_heads``.
     """
+
+    TP_PLAN = _DIFF_TP_PLAN
 
     def __init__(self, embed_dim: int, depth: int, num_heads: int, variant: str = "v1",
                  spatial: Optional[int] = None, attn_impl: str = "xla"):
@@ -229,17 +328,18 @@ class MultiheadDiffAttnCross(nn.Module):
         else:
             x_tok, q_tok = x, q_src
         B, N, E = x_tok.shape
-        hn, hd = self.num_heads, self.head_dim
+        hn, hd = self._heads(self.num_heads), self.head_dim
+        group = self._group()
+        x_tok, q_tok = M.copy_to_model(x_tok, group), M.copy_to_model(q_tok, group)
         q = self.q_proj(q_tok).reshape(B, N, 2 * hn, hd).transpose(1, 2)
         k = self.k_proj(x_tok).reshape(B, N, 2 * hn, hd).transpose(1, 2)
         v = self.v_proj(x_tok).reshape(B, N, hn, 2 * hd).transpose(1, 2)
-        lambda_full = (torch.exp(torch.sum(self.lambda_q1 * self.lambda_k1))
-                       - torch.exp(torch.sum(self.lambda_q2 * self.lambda_k2)) + self.lambda_init).to(x_tok.dtype)
-        core = get_attention_core(self.core_impl)
+        lambda_full = _lambda_full(self, group, x_tok.dtype)
+        core = get_attention_core(self.core_impl) if self.tp is None else _local_core(self.core_impl)
         qs = q * F.round_to(hd**-0.5, q.dtype)
         attn = core(qs[:, 0::2], k[:, 0::2], v) - lambda_full * core(qs[:, 1::2], k[:, 1::2], v)
         attn = self.subln(attn) * (1 - self.lambda_init)
-        attn = self.out_proj(attn.transpose(1, 2).reshape(B, N, E))
+        attn = self._row_parallel(self.out_proj, attn.transpose(1, 2).reshape(B, N, hn * 2 * hd))
         if spatial:
             attn = untokenize_torch_view(attn, h, w)
             if self.variant == "v1":

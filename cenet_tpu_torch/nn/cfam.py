@@ -13,6 +13,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from cenet_tpu_torch.core.mesh import global_batch
 from cenet_tpu_torch.nn import functional as F
 from cenet_tpu_torch.nn.attention import Nonlocal
 from cenet_tpu_torch.nn.blocks import SepConvBN, _Slot
@@ -127,7 +128,7 @@ class CCU(nn.Module):
     """Style-based channel recalibration (reference ``cfam.py:244-264``).
 
     Per-channel (max, mean, biased std) → grouped Conv1d(k=3) → ReLU → grouped
-    Conv1d(k=1) → BatchNorm1d, skipped when the batch is 1 → sigmoid gate. The
+    Conv1d(k=1) → BatchNorm1d, skipped when the (global) batch is 1 → sigmoid gate. The
     std is ``F.std_sqrt``'s: where a channel is constant over an image its
     gradient is 0, not the NaN of ``sqrt`` at 0 (the JAX package's and the
     reference's).
@@ -152,7 +153,7 @@ class CCU(nn.Module):
         w1 = self.fc1.weight.reshape(c, self.hs, 3).to(x.dtype)
         z1 = F.relu(torch.einsum("bct,cjt->bcj", u, w1))
         z = torch.einsum("bcj,cj->bc", z1, self.fc2.weight[..., 0].to(x.dtype))
-        if b > 1:
+        if global_batch(b) > 1:  # the JAX test sees the global batch
             z = self.bn(z)
         g = torch.sigmoid(z.float()).to(x.dtype)
         return x * g[:, :, None, None]

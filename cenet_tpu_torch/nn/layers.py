@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as tF
 
+from cenet_tpu_torch.core import mesh as M
 from cenet_tpu_torch.nn import functional as F
 
 
@@ -133,6 +134,12 @@ class BatchNorm(nn.Module):
     biased batch variance and updates the running statistics with the unbiased
     one, torch's ``momentum=0.1`` convention. ``num_batches_tracked`` is kept so
     that reference ``.pth`` files load strictly; nothing reads it.
+
+    Under a registered mesh (``core/mesh.py``) train mode takes the statistics
+    of the global batch, as GSPMD's mean does in the JAX step: the per-channel
+    sum, sum of squares and count are all-reduced in fp32 over the data group
+    (the backward all-reduces their gradients), and the mean, E[x²] and the
+    running statistics, n/(n−1) included, come from the global values.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
@@ -150,12 +157,23 @@ class BatchNorm(nn.Module):
         shape = [1, -1] + [1] * (x.ndim - 2)
         if self.training:
             axes = [0] + list(range(2, x.ndim))
-            mean = xf.mean(dim=axes)
-            var = (xf * xf).mean(dim=axes) - mean * mean
-            n = xf.numel() // xf.shape[1]
+            group = M.data_group()
+            if group is None:
+                mean = xf.mean(dim=axes)
+                var = (xf * xf).mean(dim=axes) - mean * mean
+                n = xf.numel() // xf.shape[1]
+            else:
+                c = x.shape[1]
+                sums = torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes),
+                                  xf.new_full((1,), float(xf.numel() // c))])
+                sums = M.all_reduce_sum(sums, group)
+                n = sums[2 * c]
+                mean = sums[:c] / n
+                var = sums[c : 2 * c] / n - mean * mean
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var * (n / max(n - 1, 1)))
+                unbias = n / max(n - 1, 1) if isinstance(n, int) else n / (n - 1).clamp(min=1)
+                self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var * unbias)
                 self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
@@ -230,7 +248,11 @@ class _RandomMask(nn.Module):
     a rate above 0, ``where(mask, x / keep, 0)`` in x's dtype for a Bernoulli(keep)
     mask of :meth:`mask_shape`, drawn from ``self.generator`` (a
     ``torch.Generator`` on x's device that the trainer attaches; never the
-    global RNG). The identity in eval mode or at rate 0."""
+    global RNG). The identity in eval mode or at rate 0. Under a registered
+    mesh with a data axis the mask of the global batch is drawn (dim 0 holds
+    the batch) and the rank's rows are taken: every rank draws what the one
+    process draws, so the generators stay in step and each sample gets its
+    own mask."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -246,7 +268,14 @@ class _RandomMask(nn.Module):
         if self.generator is None:
             raise RuntimeError(f"{type(self).__name__} in train mode needs a generator (see set_generator)")
         keep = 1.0 - self.rate
-        mask = torch.rand(self.mask_shape(x), generator=self.generator, device=x.device) < keep
+        shape = self.mask_shape(x)
+        mesh = M.get_attention_mesh()
+        if mesh is None or mesh.data == 1:
+            mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        else:
+            b = shape[0]
+            full = torch.rand((M.global_batch(b),) + tuple(shape[1:]), generator=self.generator, device=x.device)
+            mask = full[mesh.d * b : (mesh.d + 1) * b] < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -12,8 +12,20 @@ When autograd records (grad mode on and an input requires grad), the kernel is
 reached through its ``torch.autograd.Function``, whose backward is the backward
 kernel; otherwise (``inference_mode``, ``no_grad``) the forward kernel is called
 alone and nothing is saved. :func:`parse_impl` splits an ``attn_impl`` string
-as the JAX package does; the ring and ``@axis`` variants of the JAX routers are
-later work (``nn.attention.get_attention_core`` raises on them).
+as the JAX package does.
+
+Under a mesh (``core/mesh.py``) the rule reads the shape that the JAX package
+sees at the same site. Under plain data parallelism GSPMD runs the bare core
+on the global batch, so the map counts the local batch times ``data``
+(``core.mesh.global_batch``). Under ``'@model'`` the JAX core runs inside
+``shard_map`` on the local batch and heads; the head-sharded modules of
+``nn/attention.py`` call the cores with ``head_local=True`` and the map counts
+what they hand over. A site whose heads do not divide the model axis is
+replicated and counts the global batch, as JAX's fall-through to the bare
+core does. :func:`shard_heads` is ``flash_attention.py::shard_heads``: a core
+on full heads that runs on the rank's heads and gathers them. The ring
+variant (sequence parallelism) is ROADMAP queue 1 item 11b
+(``nn.attention.get_attention_core`` raises on it).
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from cenet_tpu_torch.core import mesh as M
 from cenet_tpu_torch.nn.functional import softmax_fp32
 from cenet_tpu_torch.ops import attention_kernels as K
 
@@ -43,6 +56,11 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.matmul(softmax_fp32(torch.matmul(q, k.transpose(-1, -2))), v)
 
 
+def _rows(b: int, head_local: bool) -> int:
+    """The batch the JAX package's core sees for a rank's ``b`` rows."""
+    return b if head_local else M.global_batch(b)
+
+
 def _use_kernel(q: torch.Tensor, map_elems: int) -> bool:
     return q.device.type == "cuda" and map_elems * 4 > _SMALL_LIMIT
 
@@ -51,13 +69,13 @@ def _records_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def diff_attention_core(q1, k1, q2, k2, v, lam) -> torch.Tensor:
+def diff_attention_core(q1, k1, q2, k2, v, lam, head_local: bool = False) -> torch.Tensor:
     """softmax(q1·k1ᵀ)·V − λ·softmax(q2·k2ᵀ)·V with shared V on split groups
     (q1, q2 ``(B, h, N, d)``, k1, k2 ``(B, h, M, d)``, fp32 λ): the split-group
     kernel above the size limit on the card (``pallas_diff_attention``'s route),
     else plain math in the reference's A₁V − λA₂V order of operations."""
     b, h, n, _ = q1.shape
-    if _use_kernel(q1, b * h * n * k1.shape[2]):
+    if _use_kernel(q1, _rows(b, head_local) * h * n * k1.shape[2]):
         if _records_grad(q1, k1, q2, k2, v, lam):
             return K.DiffAttentionFn.apply(q1, k1, q2, k2, v, lam)
         return K.diff_attention_fwd(q1, k1, q2, k2, v, lam)[0]
@@ -72,29 +90,66 @@ def diff_attention_plain(q1, k1, q2, k2, v, lam) -> torch.Tensor:
     return out1 - lam.to(out1.dtype) * out2
 
 
-def diff_attention_split(q, k, v, lam) -> torch.Tensor:
+def diff_attention_split(q, k, v, lam, head_local: bool = False) -> torch.Tensor:
     """Diff attention on the interleaved layout through the split groups: the
     even and odd head views of q and k go to :func:`diff_attention_core` (the
     JAX router's decomposition, ``flash_attention.py:245``)."""
-    return diff_attention_core(q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2], v, lam)
+    return diff_attention_core(q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2], v, lam, head_local=head_local)
 
 
-def diff_attention_interleaved(q, k, v, lam) -> torch.Tensor:
+def diff_attention_interleaved(q, k, v, lam, head_local: bool = False) -> torch.Tensor:
     """Diff attention on the projections' interleaved layout: q/k ``(B, 2h, N, d)``
     with group-1 heads at even rows, shared v ``(B, h, M, 2d)``, fp32 λ."""
     b, h2, n, _ = q.shape
-    if _use_kernel(q, (b * h2 // 2) * n * k.shape[2]):
+    if _use_kernel(q, (_rows(b, head_local) * h2 // 2) * n * k.shape[2]):
         if _records_grad(q, k, v, lam):
             return K.DiffAttentionInterleavedFn.apply(q, k, v, lam)
         return K.diff_attention_interleaved_fwd(q, k, v, lam)[0]
-    return diff_attention_split(q, k, v, lam)
+    return diff_attention_split(q, k, v, lam, head_local=head_local)
 
 
-def flash_attention_core(q, k, v) -> torch.Tensor:
+def flash_attention_core(q, k, v, head_local: bool = False) -> torch.Tensor:
     """softmax(q·kᵀ)·v (q pre-scaled): the kernel above the size limit on the card."""
     b, h, n, _ = q.shape
-    if _use_kernel(q, b * h * n * k.shape[2]):
+    if _use_kernel(q, _rows(b, head_local) * h * n * k.shape[2]):
         if _records_grad(q, k, v):
             return K.AttentionFn.apply(q, k, v)
         return K.attention_fwd(q, k, v)[0]
     return plain_attention(q, k, v)
+
+
+class _GatherHeads(torch.autograd.Function):
+    """The model group's head pieces concatenated on dim 1 (every rank gets the
+    whole); the backward takes the rank's piece of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.h = mesh, x.shape[1]
+        return M.gather_cat(x, mesh.model_group, mesh.model, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.mesh.m * ctx.h, ctx.h), None
+
+
+def shard_heads(core, axis: Optional[str]):
+    """``core(q, k, v)`` on full, replicated heads, run on the rank's heads when
+    the registered mesh's ``axis`` divides them, the pieces gathered after
+    (``cenet_tpu/ops/flash_attention.py::shard_heads``). The bare core without
+    an axis, without a mesh (or a process group), or when the heads do not divide."""
+    if axis is None:
+        return core
+
+    def wrapped(q, k, v):
+        mesh = M.get_attention_mesh()
+        width = mesh.model if mesh is not None and axis == "model" else 1  # the mesh has no other head axis
+        if mesh is None or mesh.model_group is None or width <= 1 or q.shape[1] % width:
+            return core(q, k, v)
+        h = q.shape[1] // width
+        mine = slice(mesh.m * h, (mesh.m + 1) * h)
+        # each rank's input gradient covers its heads only: summed over the group
+        q, k, v = (M.copy_to_model(t, mesh.model_group)[:, mine] for t in (q, k, v))
+        local = core(q, k, v, head_local=True) if core is flash_attention_core else core(q, k, v)
+        return _GatherHeads.apply(local, mesh)
+
+    return wrapped

@@ -13,6 +13,10 @@ Mirrors ``cenet_tpu/train/optim.py``, which builds them from optax:
   updates (optax ``multi_transform`` with ``set_to_zero``): no decay, no
   momentum, and they are left out of the clipping norm.
 
+Under a mesh with a model axis the trainer names the head-sharded parameters
+(``sharded``) and their ``model_group``: the clipping norm adds the squares of
+the sharded gradients over the group, and counts the replicated ones once.
+
 State lives on the parameters' device and no step reads a value back to the
 host. ``state_dict``/``load_state_dict`` carry the count and every slot by
 parameter name, so a fresh optimizer restored from them takes the same next
@@ -26,6 +30,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from cenet_tpu_torch.core.mesh import all_reduce_sum
 
 
 def make_schedule(name: str, base_lr: float, max_iterations: int, max_epochs: int = 0,
@@ -78,6 +84,8 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.frozen_prefix: Optional[str] = None
+        self.sharded: frozenset = frozenset()  # names of head-sharded parameters
+        self.model_group = None  # the process group they are sharded over
         self.count = 0
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
 
@@ -92,7 +100,7 @@ class Optimizer:
         if self.grad_clip and self.grad_clip > 0:
             # optax.clip_by_global_norm: leave the gradients as they are below the
             # limit, else scale them by limit / norm (a device scalar: no sync)
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in gs]))
+            norm = self._global_norm(names, gs)
             scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
             gs = torch._foreach_mul(gs, scale)
         wd = self.weight_decay
@@ -121,6 +129,17 @@ class Optimizer:
                 updates = torch._foreach_add(updates, ps, alpha=wd)
         torch._foreach_add_(ps, updates, alpha=-self.schedule(self.count))
         self.count += 1
+
+    def _global_norm(self, names, gs) -> torch.Tensor:
+        norms = [torch.linalg.vector_norm(g) for g in gs]
+        if self.model_group is None or not self.sharded:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        rep = [x for n, x in zip(names, norms) if n not in self.sharded]
+        part = [x for n, x in zip(names, norms) if n in self.sharded]
+        sq = torch.stack(rep).square().sum() if rep else torch.zeros((), device=gs[0].device)
+        if part:  # each rank holds its piece of these: sum the pieces' squares over the group
+            sq = sq + all_reduce_sum(torch.stack(part).square().sum(), self.model_group)
+        return sq.sqrt()
 
     def state_dict(self) -> Dict:
         """``{"count": int, "state": {name: {slot: tensor}}}``; slots are ``trace``

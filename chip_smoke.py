@@ -146,6 +146,20 @@ runs K10. Phases:
    forward with its sites routed; ``device_augment`` on eight seeded 512²
    slices against the CPU for the same choices, with its img/s beside the
    host path's;
+   6h. the ``('data', 'model')`` mesh (run after 6g, on phase 6's slices), the
+   Synapse preset, TF32 off for the fp32 comparisons: two ranks in fresh
+   processes share the card over gloo (``init_distributed(backend="gloo")``)
+   with meshes (2, 1) and (1, 2), two fp32 SGD steps each against the
+   one-process steps (losses to rtol 2e-4, weights and BatchNorm statistics
+   to 5e-4 max-abs, JAX's own DP/TP limits; the parameter updates and the
+   SGD slots, the gradient path, to 1e-3 of their whole norm and 1e-2 of
+   each tensor's), then one bf16 step each whose
+   per-rank launches of K1–K4 must equal the one-process step's (the kernels
+   built here before, not by the ranks); meanwhile, in this process, NCCL at
+   one rank with mesh (1, 1) under the same limits, and ``cli train --mesh
+   1`` for one epoch and ``cli eval --mesh 1`` of its snapshot, its JSON equal
+   to ``cli eval`` without a mesh to 1e-6; the ``kernels`` line's
+   ``mesh_launches`` holds the ranks' launches;
 7. where one training step's time goes: ``torch.profiler`` over one bf16 step
    (the card's busy time, and the host's), which must show the tensor-core
    kernels of K1–K4 and no CUDA-core instance of any of them;
@@ -1308,7 +1322,7 @@ def phase_volume():
 def twin_route():
     """While open, the DSEB sites take K1's fp32 twin in place of the kernel
     (the Pallas rounding points in fp32 torch, in slices of 2)."""
-    def twin(q, k, v, lam):
+    def twin(q, k, v, lam, head_local=False):  # one process: the batch is the global one
         return torch.cat([K.diff_attention_interleaved_fwd_plain(*piece((q, k, v, lam), i))[0]
                           for i in range(0, q.shape[0], 2)])
 
@@ -2556,6 +2570,234 @@ def phase_cli_train(root, train_img_per_s, epochs=2):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6h: the ('data', 'model') mesh on torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_STEPS, MESH_LOSS_RTOL, MESH_PARAM_ATOL = 2, 2e-4, 5e-4  # JAX's DP/TP gate limits
+# the parameter updates' and SGD slots' errors (``mesh_relative``): of all tensors
+# relative to the whole norm, and of one tensor relative to its own norm (the CPU
+# gates' limits, tests/torch_mesh_ranks.py)
+MESH_WHOLE_RTOL, MESH_TENSOR_RTOL = 1e-3, 1e-2
+MESH_CASES = {"data2": (2, 1), "model2": (1, 2)}  # (data, model) of phase 6h (b)
+
+
+def mesh_config(amp):
+    """The Synapse preset (CENet-b2, 224², batch 8, SGD, BoundaryDoU, drop-path
+    0.1), in bf16 as it trains (``amp``) or in fp32 for the comparisons."""
+    base = get_preset("synapse")
+    return base.replace(train=dataclasses.replace(base.train, amp=amp))
+
+
+def mesh_steps(mesh=None):
+    """``MESH_STEPS`` fp32 steps of a fresh trainer (the preset's seed) on the
+    seeded batch of 8 (the rank's rows under ``mesh``), on the CPU: {"losses",
+    "state" (the full state's weights and statistics), "slots" (the SGD
+    momentum of each parameter), "init" (the parameters before the steps)}."""
+    x, y = labelled_slices(31, TRAIN_B, 224)
+    if mesh is not None:
+        x, y = x[mesh.rows(TRAIN_B)], y[mesh.rows(TRAIN_B)]
+    tr = Trainer(mesh_config(False), 10, device=None if mesh is None else mesh.device, mesh=mesh)
+    init = {k: v.detach().cpu().clone() for k, v in tr.state_dict()["state_dict"].items()}
+    x, y = x.to(tr.device), y.to(tr.device)
+    losses = [float(tr.train_step(x, y)) for _ in range(MESH_STEPS)]
+    full = tr.state_dict()
+    slots = {n: s["trace"].cpu() for n, s in full["optimizer"]["state"].items()}
+    return {"losses": losses, "state": {k: v.cpu() for k, v in full["state_dict"].items()}, "slots": slots,
+            "init": {k: init[k] for k in slots}}
+
+
+def mesh_relative(triples):
+    """(the error of all tensors relative to the reference's whole norm, the
+    largest error of one tensor relative to its own norm) of (got, reference,
+    origin) triples; a tensor whose reference norm is under 1e-6 of the
+    largest (a BatchNorm bias ahead of another BatchNorm, whose gradient is
+    rounding noise) counts in the whole only."""
+    err, base = {}, {}
+    for k, (a, b, origin) in triples.items():
+        err[k] = float((a.double() - b.double()).norm())
+        base[k] = float((b.double() - origin.double()).norm())
+    floor = 1e-6 * max(base.values())
+    return (sum(e * e for e in err.values()) / sum(x * x for x in base.values())) ** 0.5, \
+        max(err[k] / base[k] for k in base if base[k] > floor)
+
+
+def mesh_against(ref, run):
+    """``run`` (``mesh_steps``) against the one-process reference: the largest
+    relative loss difference, the largest parameter or statistic difference,
+    and the errors of the parameter updates and of the SGD slots (the
+    gradient path, which a max-abs on the weights cannot see: each update is
+    small beside the weights) by ``mesh_relative``."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+    state, slots = run["state"], run["slots"]
+    return {"loss_rel": loss_rel,
+            "param_max_abs_diff": max(amax(state[k].double() - ref["state"][k].double()) for k in ref["state"]),
+            "update_rel": mesh_relative({k: (state[k], ref["state"][k], ref["init"][k]) for k in ref["init"]}),
+            "slot_rel": mesh_relative({k: (slots[k], ref["slots"][k], torch.zeros(())) for k in ref["slots"]})}
+
+
+def mesh_within(run) -> bool:
+    """Whether a ``mesh_against`` record lies within the limits."""
+    return (run["loss_rel"] <= MESH_LOSS_RTOL and run["param_max_abs_diff"] <= MESH_PARAM_ATOL
+            and max(run["update_rel"][0], run["slot_rel"][0]) <= MESH_WHOLE_RTOL
+            and max(run["update_rel"][1], run["slot_rel"][1]) <= MESH_TENSOR_RTOL)
+
+
+def mesh_rank(rank, port, ref_path, out_path):
+    """One of phase 6h (b)'s two ranks, sharing ``cuda:0`` over gloo: for each
+    mesh of ``MESH_CASES`` the fp32 steps against the reference, then one bf16
+    step as the preset trains, with its launches of the kernels."""
+    from cenet_tpu_torch.core import mesh as M
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda:0", timeout_s=300)
+    ref = torch.load(ref_path, weights_only=True)
+    out = {}
+    try:
+        for name, (data, model) in MESH_CASES.items():
+            mesh = M.make_mesh(M.MeshConfig(data=data, model=model), device="cuda:0")
+            t0 = time.perf_counter()
+            run = mesh_steps(mesh)
+            against = mesh_against(ref, run)
+            seconds = time.perf_counter() - t0
+            tr = Trainer(mesh_config(True), 10, mesh=mesh)
+            x, y = labelled_slices(31, TRAIN_B, 224)
+            x, y = x[mesh.rows(TRAIN_B)].to(DEV), y[mesh.rows(TRAIN_B)].to(DEV)
+            K.reset_launches()
+            bf16_loss = float(tr.train_step(x, y))
+            torch.cuda.synchronize()
+            out[name] = {"losses": run["losses"], **against, "fp32_seconds": seconds, "bf16_loss": bf16_loss, "launches": dict(K.LAUNCHES),
+                         "sharded_tensors": len(tr.tp_plan), "attn_impl": tr.cfg.model.attn_impl,
+                         "rows": x.shape[0]}
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        M.shutdown_distributed()
+    torch.save(out, out_path)
+
+
+MESH_RANK = r"""
+import sys
+import chip_smoke
+chip_smoke.mesh_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+"""
+
+
+def phase_mesh(root):
+    """6h: the ``('data', 'model')`` mesh (``core/mesh.py``) on the Synapse
+    preset, TF32 off for the fp32 comparisons. The one-process reference
+    takes two fp32 SGD steps; then (b) two ranks in fresh processes share the
+    card over gloo with meshes (2, 1) and (1, 2), each held to the reference
+    (losses to rtol 2e-4, weights and statistics to 5e-4 max-abs, updates and
+    SGD slots by ``mesh_relative`` to 1e-3 and 1e-2) and each
+    taking one bf16 step, whose launches of K1–K4 per rank must be the
+    one-process step's (the sites route on the shape JAX sees: the global
+    batch under data=2, the local heads 8/4/4 and the unsharded dec1 Nonlocal
+    under model=2); meanwhile here (a) NCCL at one rank, mesh (1, 1), the same
+    two steps under the same limits, and (c) ``cli train --mesh 1`` for one
+    epoch of phase 6's slices and ``cli eval --mesh 1`` of its snapshot, whose
+    JSON must equal ``cli eval`` without a mesh to 1e-6. Returns the launches
+    of the ranks' bf16 steps, by mesh and rank."""
+    from cenet_tpu_torch.core import mesh as M
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = mesh_steps()
+        losses = ref["losses"]
+        with tempfile.TemporaryDirectory() as tmp:
+            ref_path = os.path.join(tmp, "ref.pt")
+            torch.save(ref, ref_path)
+            port = M.free_port()
+            outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+            t_ranks = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, "-c", MESH_RANK, str(r), str(port), ref_path, outs[r]],
+                                      cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True) for r in range(2)]
+            try:
+                # (a) NCCL at one rank, while the ranks run
+                M.init_distributed(None, 1, 0, device=DEV)
+                try:
+                    mesh = M.make_mesh(M.MeshConfig(data=1, model=1), device=DEV)
+                    nccl = mesh_against(ref, mesh_steps(mesh))
+                    nccl["backend"] = torch.distributed.get_backend()
+                finally:
+                    M.shutdown_distributed()
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+                cli_result = mesh_cli(root)
+                logs = []
+                for p in procs:
+                    logs.append(p.communicate(timeout=600)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            ranks_s = time.perf_counter() - t_ranks
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                check(p.returncode == 0, f"mesh rank {r} failed (gloo on one card):\n{log[-4000:]}")
+            ranks = [torch.load(o, weights_only=True) for o in outs]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = TRAIN_PER_STEP["interleaved"]
+    emit({"phase": "mesh", "reference_losses": losses, "nccl_one_rank": nccl, "ranks": ranks, "cli": cli_result,
+          "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase, "per_step_one_process": want})
+    check(nccl["backend"] == "nccl" and mesh_within(nccl), f"mesh (a), NCCL at one rank: {nccl}")
+    launches = {}
+    for name in MESH_CASES:
+        for r, run in enumerate(rank[name] for rank in ranks):
+            check(mesh_within(run), f"mesh (b) {name}, rank {r}, against one process: {run}")
+            check(all(run["launches"].get(k, 0) == n for k, n in want.items())
+                  and sum(run["launches"].values()) == sum(want.values()),
+                  f"mesh (b) {name}, rank {r}: the bf16 step launched {run['launches']}, one process {want}")
+            for k, n in run["launches"].items():
+                launches.setdefault(k, {}).setdefault(name, [0, 0])[r] = n
+    check(ranks[0]["model2"]["sharded_tensors"] > 0 and ranks[0]["model2"]["attn_impl"].endswith("@model"),
+          f"mesh (b) model2 did not shard: {ranks[0]['model2']}")
+    check(all(abs(cli_result["eval_mesh"][k] - cli_result["eval"][k]) <= 1e-6 for k in cli_result["eval"]),
+          f"mesh (c): cli eval --mesh 1 {cli_result['eval_mesh']} against {cli_result['eval']}")
+    return launches
+
+
+def mesh_cli(root):
+    """Phase 6h (c): ``cli train --mesh 1`` (one epoch, no snapshot eval) on
+    phase 6's slices, then ``cli eval`` of its snapshot with ``--mesh 1`` and
+    without, on one seeded 16 × 512² case in memory: both JSON lines, the
+    launches of the train run, and the seconds."""
+    import io
+
+    from cenet_tpu_torch.cli import main as cli
+
+    test_set = InMemoryVolumes([synthetic_case(23, d=16)])
+    memo = MetricMemo()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["train", "--preset", "synapse", "--root_path", root, "--list_dir", root, "--output_dir", tmp,
+                "--max_epochs", "1", "--eval_interval", "2", "--mesh", "1"]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = cli.main(argv, test_set=InMemoryVolumes([]))
+        out["train_s"], out["train_launches"], out["steps"] = time.perf_counter() - t0, dict(K.LAUNCHES), trainer.step
+        del trainer
+        torch.cuda.empty_cache()
+        snap = cli.snapshot_path(cli.make_config(cli.build_argparser().parse_args(argv)))
+        for key, extra in (("eval_mesh", ["--mesh", "1"]), ("eval", [])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf), memo.installed():
+                result = cli.main(["eval", "--preset", "synapse", "--checkpoint", snap, "--output_dir", tmp, *extra],
+                                  test_set=test_set)
+            out[key], out[f"{key}_s"] = result, time.perf_counter() - t0
+            check(json.loads(buf.getvalue().strip().splitlines()[-1]) == result, f"cli {key}: printed {buf.getvalue()}")
+    check(out["steps"] == 8 and all(out["train_launches"].get(k, 0) == 8 * n
+                                     for k, n in TRAIN_PER_STEP["interleaved"].items()),
+          f"mesh (c): cli train --mesh 1 took {out['steps']} steps, launched {out['train_launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6g: remat, --model_stats, the profiler hook, debug, device augmentation
 # ---------------------------------------------------------------------------
 
@@ -3410,6 +3652,7 @@ def main():
         launches["rotary"], rotary_row = phase_rotary()
         launches["cli-train"] = phase_cli_train(train_root, train_img_per_s)
         launches["remat"] = phase_remat(train_root, train_wait_ms)
+        mesh_launches = phase_mesh(train_root)
     launches["acdc"] = phase_acdc()
     launches["ph2"] = phase_skin("ph2")
     launches["cenet_org"] = phase_zoo("cenet_org", "pvt_v2_b2", "cenet_org")
@@ -3428,6 +3671,7 @@ def main():
             "acdc_launches": launches["acdc"].get(name, 0), "ph2_launches": launches["ph2"].get(name, 0),
             "cenet_org_launches": launches["cenet_org"].get(name, 0),
             "resnet50_launches": launches["resnet50"].get(name, 0),
+            "mesh_launches": {mesh: mesh_launches.get(name, {}).get(mesh, [0, 0]) for mesh in MESH_CASES},
             "max_abs_err": err,
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": bound_by(total("ops_ms"), total("bytes_ms")),

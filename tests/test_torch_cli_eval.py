@@ -167,13 +167,16 @@ def test_cli_eval_npz_equals_pth(data):
         assert torch.equal(sd[k], v), k  # values and shapes, the Nonlocal gates' 0-d w included
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["bench", "--preset", "synapse"], "items 1 and 5"),
-    (["eval", "--preset", "synapse", "--mesh", "2"], "item 11"),
-    (["eval", "--preset", "synapse", "--coordinator", "localhost:1234"], "item 11"),
+@pytest.mark.parametrize("argv, message", [
+    (["bench", "--preset", "synapse"], "ROADMAP queue 1 items 1 and 5"),
+    (["eval", "--preset", "synapse", "--mesh", "1,1,2"], "ROADMAP queue 1 item 11b"),
+    (["eval", "--preset", "synapse", "--coordinator", "localhost:1234"], "--coordinator needs --num_processes"),
 ])
-def test_unported_modes_presets_and_options_exit(argv, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP queue 1 {item}"):
+def test_unported_modes_presets_and_options_exit(argv, message):
+    """What the CLI does not run exits before any work: ``bench`` and the
+    ``seq`` mesh axis naming the ROADMAP item that ports them, and a
+    ``--coordinator`` without the host count and index it needs."""
+    with pytest.raises(SystemExit, match=message):
         cli.main(argv)
 
 

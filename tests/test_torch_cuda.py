@@ -1146,3 +1146,29 @@ def test_cuda_device_augment_matches_the_cpu(cuda):
     want_img, want_lab = DA.apply_choices(x, y, {k: v.cpu() for k, v in choices.items()}, 64)
     assert torch.equal(lab.cpu(), want_lab)
     assert float((img.cpu() - want_img).abs().max()) <= 1e-5 * float(want_img.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_share_the_card_over_gloo(cuda):
+    """``chip_smoke.py`` phase 6h (b) at small size: two ranks on ``cuda:0``
+    over gloo, meshes (2, 1) and (1, 2), 2 fp32 SGD steps of CENet-b0 at 64 px
+    (batch 8, drop-path, the clip; ``tests/torch_mesh_ranks.py``) against the
+    one-process steps on the card: losses to rtol 2e-4, weights and statistics
+    to 5e-4 max-abs, the parameter updates and SGD slots within 1e-3 of their
+    whole norm and 1e-2 of each tensor's (``R.relative_errors``)."""
+    import torch_mesh_ranks as R
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [(dict(loss_type="boundary"), (2, 1)), (dict(loss_type="dice,ce", loss_weights="0.5,0.5"), (1, 2))]
+    got = R.run_ranks("rank_train", 2, {"cases": cases, "device": "cuda:0"}, device="cuda:0", backend="gloo")
+    for i, (kw, _) in enumerate(cases):
+        want = R.train(R.dp_config(**kw), device="cuda")
+        for rank in got:
+            run = rank["train"][i]
+            np.testing.assert_allclose(run["losses"], want["losses"], rtol=2e-4)
+            ref = want["state"]["state_dict"]
+            assert max((run["state"]["state_dict"][k].double() - ref[k].double()).abs().max().item()
+                       for k in ref) < 5e-4
+            errs = R.relative_errors(run["state"], want["state"], want["init"])
+            assert max(errs["update"][0], errs["slot"][0]) < R.WHOLE_RTOL, errs
+            assert max(errs["update"][1], errs["slot"][1]) < R.TENSOR_RTOL, errs

@@ -184,3 +184,26 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device_put_fn()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+MESH_MODULES = ["core.mesh", "train.trainer", "train.losses", "train.optim", "evaluate.predict", "ops.router",
+                "nn.attention", "nn.layers", "nn.cfam", "data.loader", "core.checkpoint", "cli.main"]
+
+
+def test_mesh_modules_import_no_jax_and_wrap_nothing():
+    """The mesh's modules (``core/mesh.py`` and the layers, losses, trainer,
+    loader, checkpoints and CLI that take a mesh), imported together in one
+    process, import neither JAX nor the JAX package; no module of the port
+    wraps a model in ``DistributedDataParallel`` or uses ``SyncBatchNorm``."""
+    code = ("import sys; " + "; ".join(f"import cenet_tpu_torch.{m}" for m in MESH_MODULES) + "; print(sorted(m "
+            "for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cenet_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+    for base, _, files in os.walk(os.path.join(REPO, "cenet_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(base, name)) as f:
+                    text = f.read()
+                for banned in ("DistributedDataParallel(", "SyncBatchNorm", "torch.nn.parallel"):
+                    assert banned not in text, (name, banned)

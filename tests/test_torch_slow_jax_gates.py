@@ -16,6 +16,13 @@ port's seeded weights carried into the JAX tree (``jax.eval_shape``, no init
 compile), BatchNorm statistics randomised, the JAX step compiled with
 ``xla_llvm_disable_expensive_passes`` only; losses within 1e-6, the
 parameters' change within 1e-6, BatchNorm statistics within 1e-5.
+
+* the mesh: two SGD steps of the port on ``data=2`` (two gloo ranks) and on
+  ``data=2 × model=2`` (four, the attention projections head-sharded) against
+  the JAX ``Trainer`` on the same meshes of the CPU's virtual devices (its
+  state placed by ``TP_ATTENTION_RULES`` as the JAX CLI places it), CENet-b0
+  at 64 px, batch 8, fp32, drop-path 0, with JAX's own DP gate limits:
+  losses to rtol 2e-4, every parameter and statistic to 5e-4.
 """
 
 import dataclasses
@@ -135,3 +142,54 @@ def test_model_cost_flops_against_xla():
     assert got["params_m"] == pytest.approx(want["params_m"], rel=1e-9)
     ratio = got["flops_g"] / want["flops_g"]
     assert 0.85 <= ratio <= 0.90, (got, want)
+
+
+MESHES = {"data2": ((2, 1), dict(loss_type="boundary")),
+          "data2_model2": ((2, 2), dict(loss_type="dice,ce", loss_weights="0.5,0.5"))}
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_meshed_steps_match_the_jax_trainer_on_its_mesh(name):
+    import torch_mesh_ranks as R
+    from cenet_tpu.core.mesh import MeshConfig, TP_ATTENTION_RULES, make_mesh, shard_batch, shard_state
+
+    (data, model), kw = MESHES[name]
+    ranks = R.start_ranks("rank_train", data * model, {"cases": [(dict(kw, drop_path_rate=0.0), (data, model))]})
+    try:
+        cfg = R.dp_config(drop_path_rate=0.0, **kw)
+        tr = Trainer(cfg, max_iterations=10, device="cpu")  # the ranks' initial weights (the same seed)
+        mesh = make_mesh(MeshConfig(data=data, model=model), devices=jax.devices()[: data * model])
+        jcfg = jget_preset("acdc")
+        jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, **{f.name: getattr(cfg.model, f.name)
+                                                                      for f in dataclasses.fields(cfg.model)}),
+                            train=dataclasses.replace(jcfg.train, **{f.name: getattr(cfg.train, f.name)
+                                                                      for f in dataclasses.fields(cfg.train)}))
+        jt = JTrainer(jcfg, max_iterations=10, mesh=mesh)
+        images, labels = R.batch(8)
+        x = jnp.asarray(images.numpy().transpose(0, 2, 3, 1))
+        shapes = jax.eval_shape(lambda x: jt.model.init(jax.random.PRNGKey(0), x), x[:1])
+        zeros = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), dict(shapes))
+        sd = {k: v.numpy() for k, v in tr.model.state_dict().items()}
+        variables = convert_state_dict(sd, zeros, "cenet", strict=True)[0]
+        params = jax.tree.map(jnp.asarray, variables["params"])
+        state = TrainState(params, jax.tree.map(jnp.asarray, variables["batch_stats"]), jt.tx.init(params),
+                           jnp.zeros((), jnp.int32))
+        state = shard_state(mesh, state, TP_ATTENTION_RULES if model > 1 else None)
+        batch = shard_batch(mesh, {"i": x, "l": jnp.asarray(labels.numpy().astype(np.int32))})
+        step = jt.make_train_step().lower(state, batch["i"], batch["l"], jax.random.PRNGKey(0)).compile(
+            compiler_options=JAX_STEP_OPTIONS)
+        jax_losses = []
+        for _ in range(2):
+            state, loss = step(state, batch["i"], batch["l"], jax.random.PRNGKey(0))
+            state = shard_state(mesh, state, TP_ATTENTION_RULES if model > 1 else None)  # the compiled placement
+            jax_losses.append(float(loss))
+        want = state_dict_from_jax(jax.tree.map(np.asarray, state.as_variables()))
+    finally:
+        got = ranks.results()
+    for result in got:
+        run = result["train"][0]
+        np.testing.assert_allclose(run["losses"], jax_losses, rtol=2e-4)
+        sd = run["state"]["state_dict"]
+        for k in want:
+            if not k.endswith("num_batches_tracked"):  # the JAX package keeps no count
+                assert float((sd[k].double() - want[k].double()).abs().max()) < 5e-4, (name, k)
