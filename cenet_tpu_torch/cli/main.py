@@ -31,11 +31,12 @@ snapshot directory's ``best``/``final``/last epoch/latest step
 z_spacing)), and print ``{"mean_dice": …, "mean_hd95": …}``; the skin presets
 run ``skin_test`` over the test split, optionally with contour overlays
 (``--save_figs``), and print ``{"dice": …, "acc": …, "iou": …}``, as the last
-line. What is not ported yet (``bench``, the ``seq`` mesh axis) exits with
-the ROADMAP item that ports it.
+line. What is not ported yet (``bench``) exits with the ROADMAP item that
+ports it.
 
-``--mesh data[,model]`` runs either mode on the ``('data', 'model')`` mesh of
-``core/mesh.py``, one rank per process and device (``cuda:<local rank>``, or
+``--mesh data[,model[,seq]]`` runs either mode on the ``('data', 'seq',
+'model')`` mesh of ``core/mesh.py`` (the JAX CLI's order on the command line,
+JAX's layout of the ranks), one rank per process and device (``cuda:<local rank>``, or
 the CPU under ``--device cpu``). Launched alone, this process is local rank 0
 and starts the host's other ranks itself, as fresh processes of this module;
 with ``--coordinator host:port``, host ``--process_id i`` of
@@ -64,8 +65,6 @@ import numpy as np
 # what exits, and the ROADMAP queue 1 item that ports it
 NOT_PORTED = {
     "bench": "the bench mode is not ported yet (ROADMAP queue 1 items 1 and 5)",
-    "seq": "--mesh data,model,seq with seq > 1: the 'seq' axis (ring attention) is not ported yet "
-           "(ROADMAP queue 1 item 11b)",
 }
 
 
@@ -97,7 +96,8 @@ def build_argparser():
     p.add_argument("--throughput", action="store_true")
     p.add_argument("--resume", action="store_true", help="resume from the latest snapshot in the output dir")
     p.add_argument("--mesh", default=None,
-                   help="data[,model] mesh, e.g. '2' or '2,2', one rank per device (seq > 1 is not ported yet)")
+                   help="data[,model[,seq]] mesh, e.g. '2', '2,2' or '1,1,2', one rank per device "
+                        "(seq > 1 splits the tokens of the ring-attention sites: --attn_impl ring)")
     # eval-protocol surface (reference scripts/synapse.sh TEST uses scale_factors
     # 1.0,0.75,0.5 vs TRAIN's 0.8,0.4 — FEA depends on these, synapse.sh:74,103)
     p.add_argument("--scale_factors", default=None, help="comma floats, e.g. '1.0,0.75,0.5'")
@@ -407,7 +407,8 @@ def run_train(cfg, args, test_set=None, mesh=None):
         trainer = Trainer(cfg, max_iterations, iters_per_epoch=iters_per_epoch, device=device, mesh=mesh)
         log.info("model: %.2f M params", count_params(trainer.model) / 1e6)
         if mesh is not None:
-            log.info("mesh: data=%d model=%d, %d sharded tensors", mesh.data, mesh.model, len(trainer.tp_plan))
+            log.info("mesh: data=%d model=%d seq=%d, %d sharded tensors", mesh.data, mesh.model, mesh.seq,
+                     len(trainer.tp_plan))
         if args.model_stats and lead:  # the same count on the card as on the CPU (core/stats.py)
             print_model_stats(trainer.model, (1, cfg.model.input_channels, d.img_size, d.img_size), log=log.info)
         pretrained = args.pretrained_pth
@@ -589,7 +590,7 @@ def run_eval(cfg, args, test_set=None, mesh=None) -> dict:
         predict = make_predict_fn(model, compute_dtype)
         if mesh is not None:
             plan = shard_model_(model, mesh)
-            log.info("mesh: data=%d model=%d, %d sharded tensors", mesh.data, mesh.model, len(plan))
+            log.info("mesh: data=%d model=%d seq=%d, %d sharded tensors", mesh.data, mesh.model, mesh.seq, len(plan))
             predict = shard_rows(predict, mesh)
         if cfg.data.dataset in ("synapse", "acdc"):
             hooks = _save_hooks(args, cfg, snap, log) if lead else None
@@ -614,9 +615,7 @@ def _mesh_config(args):
     if len(parts) > 3:
         raise SystemExit(f"--mesh {args.mesh}: at most data,model,seq")
     data, model, seq = (parts + [1, 1])[:3]
-    if seq > 1:
-        raise SystemExit(NOT_PORTED["seq"])
-    return MeshConfig(data=data, model=model)
+    return MeshConfig(data=data, model=model, seq=seq)
 
 
 def _run_rank(args, test_set, mcfg, coordinator: str, world: int, rank: int, local_rank: int):
@@ -655,7 +654,7 @@ def run_meshed(args, argv: Sequence[str], test_set=None):
     hosts, host = args.num_processes or 1, args.process_id or 0
     cuda = torch.device(args.device).type == "cuda"
     devices = torch.cuda.device_count() if cuda else 1
-    world = mcfg.data * max(mcfg.model, 1) if mcfg.data > 0 else hosts * devices
+    world = mcfg.data * max(mcfg.model, 1) * max(mcfg.seq, 1) if mcfg.data > 0 else hosts * devices
     if world % hosts:
         raise SystemExit(f"--mesh {args.mesh}: {world} ranks do not split over {hosts} hosts")
     local = world // hosts

@@ -1,12 +1,15 @@
-"""The ``('data', 'model')`` mesh on ``torch.distributed``: counterpart of ``cenet_tpu/core/mesh.py``.
+"""The ``('data', 'seq', 'model')`` mesh on ``torch.distributed``: counterpart of ``cenet_tpu/core/mesh.py``.
 
 Each rank is one process on one device. The ranks lie on the mesh as JAX's
-``make_mesh`` lays its devices out, ``reshape(data, model)``: rank
-``d·model + m`` sits at data position ``d`` and model position ``m``. The
-*data group* of a rank is the ranks with its ``m`` (they hold the same weights
-and see different rows of the global batch); its *model group* the ranks with
-its ``d`` (they see the same rows and hold different heads of the
-head-sharded attention sites).
+``make_mesh`` lays its devices out, ``reshape(data, seq, model)`` (``reshape(data,
+model)`` when ``seq`` is 1): rank ``(d·seq + s)·model + m`` sits at data
+position ``d``, seq position ``s`` and model position ``m``. The *data group*
+of a rank is the ranks with its ``s`` and ``m`` (they hold the same weights and
+see different rows of the global batch); its *model group* the ranks with its
+``d`` and ``s`` (they see the same rows and hold different heads of the
+head-sharded attention sites); its *seq group* the ranks with its ``d`` and
+``m`` (they hold the same weights and rows, and split the tokens of the ring
+attention sites between them).
 
 GSPMD makes every reduction of the JAX step one over the global batch, and
 shards the attention projections by ``TP_ATTENTION_RULES`` without changing
@@ -21,14 +24,22 @@ the math. Here the layers do that by hand, with the collectives below:
   :func:`copy_to_model` (identity forward, all-reduce backward) and their
   partial outputs :func:`reduce_from_model` (all-reduce forward, identity
   backward), Megatron's pair;
+* the ring attention of ``ops/ring_attention.py`` takes the rank's block of
+  the tokens of q, k and v (:func:`split_tokens`: the block forward, the
+  blocks' gradients gathered over the seq group backward) and gathers the blocks of its
+  output (:func:`gather_tokens`), so that everything around it stays
+  replicated and equal on every seq rank; nothing sums over ``seq``;
 * the trainer averages every gradient over the data group.
 
-Only ``all_reduce``, ``broadcast`` and ``all_gather`` are called, so the
-same code runs on NCCL and on gloo, CUDA tensors included. Without an
-initialised process group a :class:`Mesh` has no groups and every collective
-is the identity: the one-process step.
-
-The ``seq`` axis (ring attention) is not ported (ROADMAP queue 1 item 11b).
+``all_reduce``, ``broadcast`` and ``all_gather`` run on NCCL and on gloo alike,
+CUDA tensors included. The ring's hop (:func:`ring_pass`) is the one
+point-to-point exchange: each rank sends its block to the next rank of its
+seq group and receives the previous rank's (``dist.batch_isend_irecv``). NCCL
+sends device tensors; gloo's ``send``/``recv`` read host memory, so on a gloo
+group CUDA tensors are staged through host copies (chosen by the group's
+backend, not by catching an error). Without an initialised process group a
+:class:`Mesh` has no groups and every collective is the identity: the
+one-process step.
 """
 
 from __future__ import annotations
@@ -44,7 +55,6 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
-SEQ_NOT_PORTED = "the 'seq' mesh axis (ring attention) is not ported yet (ROADMAP queue 1 item 11b)"
 DEFAULT_TIMEOUT_S = 1800.0
 
 
@@ -57,7 +67,7 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A rank's place on the mesh and its two process groups (None without a
+    """A rank's place on the mesh and its process groups (None without a
     process group: a one-process mesh, whose collectives are identities)."""
 
     data: int
@@ -66,19 +76,32 @@ class Mesh:
     device: torch.device
     data_group: Any = None
     model_group: Any = None
+    seq: int = 1
+    seq_group: Any = None
 
     @property
     def d(self) -> int:
         """The rank's position on the data axis: its rows of the global batch."""
-        return self.rank // self.model
+        return self.rank // (self.seq * self.model)
+
+    @property
+    def s(self) -> int:
+        """The rank's position on the seq axis: its block of a ring site's tokens."""
+        return self.rank // self.model % self.seq
 
     @property
     def m(self) -> int:
         """The rank's position on the model axis: its heads of the sharded sites."""
         return self.rank % self.model
 
+    @property
+    def seq_ranks(self) -> List[int]:
+        """The global ranks of the rank's seq group, in seq order."""
+        return [(self.d * self.seq + s) * self.model + self.m for s in range(self.seq)]
+
     def rows(self, b: int) -> slice:
-        """This rank's rows of a global batch of ``b`` (a multiple of ``data``)."""
+        """This rank's rows of a global batch of ``b`` (a multiple of ``data``);
+        the ranks of a seq group hold the same rows."""
         if b % self.data:
             raise ValueError(f"a global batch of {b} does not split over data={self.data}")
         n = b // self.data
@@ -155,34 +178,42 @@ def shutdown_distributed() -> None:
     _DEVICE = None
 
 
-def axis_ranks(data: int, model: int) -> Tuple[List[List[int]], List[List[int]]]:
-    """The ranks of every data group (one per model position) and of every
-    model group (one per data position) of a ``data × model`` mesh."""
-    return ([[d * model + m for d in range(data)] for m in range(model)],
-            [[d * model + m for m in range(model)] for d in range(data)])
+def axis_ranks(data: int, model: int, seq: int = 1) -> Tuple[List[List[int]], List[List[int]], List[List[int]]]:
+    """The ranks of every data group (one per (seq, model) position, in that
+    order), of every model group (one per (data, seq) position) and of every
+    seq group (one per (data, model) position) of a ``data × seq × model`` mesh."""
+    def rank(d, s, m):
+        return (d * seq + s) * model + m
+
+    return ([[rank(d, s, m) for d in range(data)] for s in range(seq) for m in range(model)],
+            [[rank(d, s, m) for m in range(model)] for d in range(data) for s in range(seq)],
+            [[rank(d, s, m) for s in range(seq)] for d in range(data) for m in range(model)])
 
 
 def make_mesh(cfg: MeshConfig = MeshConfig(), device: Optional[Union[str, torch.device]] = None) -> Mesh:
     """This rank's :class:`Mesh` over every rank of the default process group
-    (one rank, no groups, without one). The data and model groups are made here,
-    by every rank in the same order, so every rank must call it."""
-    if cfg.seq > 1:
-        raise NotImplementedError(SEQ_NOT_PORTED)
+    (one rank, no groups, without one). The data, model and (``seq > 1``) seq
+    groups are made here, by every rank in the same order, so every rank must
+    call it."""
     live = dist.is_initialized()
     world = dist.get_world_size() if live else 1
     rank = dist.get_rank() if live else 0
-    model = max(cfg.model, 1)
-    data = cfg.data if cfg.data > 0 else world // model
-    if data * model != world:
-        raise ValueError(f"mesh {data}x{model} != {world} ranks")
+    model, seq = max(cfg.model, 1), max(cfg.seq, 1)
+    data = cfg.data if cfg.data > 0 else world // (model * seq)
+    if data * seq * model != world:
+        shape = f"{data}x{model}" if seq == 1 else f"{data}x{seq}x{model} (data x seq x model)"
+        raise ValueError(f"mesh {shape} != {world} ranks")
     dev = torch.device(device) if device is not None else (_DEVICE or torch.device("cuda"))
-    data_group = model_group = None
-    if live:
-        data_ranks, model_ranks = axis_ranks(data, model)
-        data_groups = [dist.new_group(r) for r in data_ranks]
-        model_groups = [dist.new_group(r) for r in model_ranks]
-        data_group, model_group = data_groups[rank % model], model_groups[rank // model]
-    return Mesh(data, model, rank, dev, data_group, model_group)
+    mesh = Mesh(data, model, rank, dev, seq=seq)
+    if not live:
+        return mesh
+    data_ranks, model_ranks, seq_ranks = axis_ranks(data, model, seq)
+    data_groups = [dist.new_group(r) for r in data_ranks]
+    model_groups = [dist.new_group(r) for r in model_ranks]
+    seq_groups = [dist.new_group(r) for r in seq_ranks] if seq > 1 else [None] * len(seq_ranks)
+    return dataclasses.replace(mesh, data_group=data_groups[mesh.s * model + mesh.m],
+                               model_group=model_groups[mesh.d * seq + mesh.s],
+                               seq_group=seq_groups[mesh.d * model + mesh.m])
 
 
 # The registered mesh: the trainer registers its own before every step (and the
@@ -297,6 +328,76 @@ def gather_cat(x: torch.Tensor, group: Any, parts: int, dim: int = 0) -> torch.T
     pieces = [torch.empty_like(x) for _ in range(parts)]
     dist.all_gather(pieces, x, group=group)
     return torch.cat(pieces, dim)
+
+
+class _SplitTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        n = x.shape[dim] // mesh.seq
+        return x.narrow(dim, mesh.s * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_cat(g, ctx.mesh.seq_group, ctx.mesh.seq, ctx.dim), None, None
+
+
+class _GatherTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return gather_cat(x, mesh.seq_group, mesh.seq, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.mesh.s * ctx.n, ctx.n), None, None
+
+
+def split_tokens(x: torch.Tensor, mesh: Mesh, dim: int = 2) -> torch.Tensor:
+    """The rank's block of the tokens (dim ``dim``, a multiple of ``seq``) of a
+    tensor that every rank of its seq group holds whole; the backward gathers
+    the ranks' gradients of their blocks over the group, so every rank gets
+    the whole gradient."""
+    return _SplitTokens.apply(x, mesh, dim)
+
+
+def gather_tokens(x: torch.Tensor, mesh: Mesh, dim: int = 2) -> torch.Tensor:
+    """The seq group's token blocks concatenated on ``dim`` in seq order, on
+    every rank; the backward takes the rank's block of the (replicated) gradient."""
+    return _GatherTokens.apply(x, mesh, dim)
+
+
+class RingPass:
+    """One hop of the ring in flight (:func:`ring_pass`); :meth:`wait` returns
+    the tensors received from the previous rank of the seq group."""
+
+    def __init__(self, works, sent, received, device):
+        self.works, self.sent, self.received, self.device = works, sent, received, device  # sent: alive until done
+
+    def wait(self) -> List[torch.Tensor]:
+        for w in self.works:
+            w.wait()
+        return [t.to(self.device) for t in self.received]
+
+
+def ring_pass(tensors, mesh: Mesh, tag: int = 0) -> RingPass:
+    """Start sending ``tensors`` to the next rank of the seq group (position
+    s + 1, cyclically) and receiving the previous rank's (s − 1), the same
+    shapes and dtypes, under tags ``tag``, ``tag + 1``, … (passes in flight
+    together take tags apart). NCCL sends the device tensors; on a gloo group, whose
+    ``send``/``recv`` read host memory, CUDA tensors are copied to the host
+    first and the received ones back to the device in :meth:`RingPass.wait`."""
+    staged = dist.get_backend(mesh.seq_group) == "gloo"
+    send = [t.detach().contiguous() for t in tensors]
+    device = send[0].device
+    if staged:
+        send = [t.cpu() for t in send]
+    received = [torch.empty_like(t) for t in send]
+    nxt = mesh.seq_ranks[(mesh.s + 1) % mesh.seq]
+    prv = mesh.seq_ranks[(mesh.s - 1) % mesh.seq]
+    ops = [dist.P2POp(dist.isend, t, peer=nxt, group=mesh.seq_group, tag=tag + i) for i, t in enumerate(send)]
+    ops += [dist.P2POp(dist.irecv, t, peer=prv, group=mesh.seq_group, tag=tag + i) for i, t in enumerate(received)]
+    return RingPass(dist.batch_isend_irecv(ops), send, received, device)
 
 
 def agree(values: torch.Tensor, group: Any = None) -> bool:

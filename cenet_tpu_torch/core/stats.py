@@ -7,9 +7,10 @@ of the compiled forward. The port counts the aten operators of the forward's
 plain route instead, run on the ``meta`` device: shapes only, no memory, no
 arithmetic. On the card the attention sites above the router's limit reach
 hand-written kernels through ``ctypes``, which no operator count sees; on
-``meta`` every site takes the router's plain math (``ops/router.py``), so the
-count is the same for a model on the card or on the CPU, with its sites
-routed or not, and for every ``attn_impl``.
+``meta`` every site takes the router's plain math (``ops/router.py``), and the
+ring core (``attn_impl='ring'``) its plain fallback with no collective, so
+the count is the same for a model on the card or on the CPU, with its sites
+routed or not, on a mesh or not, and for every ``attn_impl``.
 """
 
 from __future__ import annotations

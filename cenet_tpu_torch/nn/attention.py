@@ -3,8 +3,10 @@
 Mirrors ``cenet_tpu/nn/attention.py``. ``attn_impl`` takes the JAX package's
 names (:func:`get_attention_core`): ``'xla'`` selects the naive full-map path
 (the parity path of the JAX package), ``'chunked'`` plain math of the same
-numerics, and ``'pallas'`` the routes of :mod:`cenet_tpu_torch.ops.router`,
-which send large maps on the card to the CUDA kernels.
+numerics, ``'pallas'`` the routes of :mod:`cenet_tpu_torch.ops.router`,
+which send large maps on the card to the CUDA kernels, and ``'ring'`` the
+ring attention of :mod:`cenet_tpu_torch.ops.ring_attention` over a mesh's
+``seq`` axis (K2 and K4 on every hop on the card).
 
 Tensor parallelism: :class:`SRAAttention`, :class:`MultiheadDiffAttn` and
 :class:`MultiheadDiffAttnCross` take their rank's heads in ``shard_heads_(mesh)``
@@ -31,7 +33,7 @@ import torch.nn as nn
 from cenet_tpu_torch.core import mesh as M
 from cenet_tpu_torch.nn import functional as F
 from cenet_tpu_torch.nn.layers import TRUNC_NORMAL, BatchNorm, Conv2d, Dropout, LayerNorm, Linear, RMSNorm
-from cenet_tpu_torch.ops import rotary, router
+from cenet_tpu_torch.ops import ring_attention, rotary, router
 
 
 def get_attention_core(impl: str) -> Callable:
@@ -41,22 +43,24 @@ def get_attention_core(impl: str) -> Callable:
     naive ones and which never reaches a kernel), give plain math; ``'pallas'``
     the routed core. An ``'@axis'`` suffix wraps the core in
     ``router.shard_heads``, which is the bare core unless a registered mesh's
-    axis divides the heads. ``'ring'`` raises ``NotImplementedError``
-    (sequence parallelism, ROADMAP queue 1 item 11b); any other name raises
+    axis divides the heads. ``'ring'`` and ``'ring@seq'`` give the ring core
+    over the mesh's seq axis (``ops/ring_attention.py::make_ring_core``, whose
+    '@axis' names the token axis, not a head axis); any other name raises
     ``ValueError``."""
     core, axis = router.parse_impl(impl)
     if core not in ("xla", "chunked", "pallas", "ring"):
         raise ValueError(f"unknown attention impl: {impl}")
     if core == "ring":
-        raise NotImplementedError(f"attention impl {impl!r}: ring attention (the 'seq' mesh axis) is not ported "
-                                  "yet (ROADMAP queue 1 item 11b)")
+        return ring_attention.make_ring_core(axis or "seq")
     return router.shard_heads(router.flash_attention_core if core == "pallas" else router.plain_attention, axis)
 
 
 def _local_core(impl: str) -> Callable:
-    """The bare core of ``impl`` for a head-sharded module's local heads."""
-    core = get_attention_core(router.parse_impl(impl)[0])
-    return functools.partial(core, head_local=True) if core is router.flash_attention_core else core
+    """The bare core of ``impl`` for a head-sharded module's local heads (the
+    routed and ring cores told so: their size rules count the heads JAX sees)."""
+    name = router.parse_impl(impl)[0]
+    core = get_attention_core(name)
+    return core if name in ("xla", "chunked") else functools.partial(core, head_local=True)
 
 
 def _shard_param_(module: nn.Module, key: str, dim: int, parts: int, mesh: "M.Mesh") -> None:
@@ -265,13 +269,14 @@ class MultiheadDiffAttn(_HeadSharded, nn.Module):
         if core == "xla" or bias:
             attn = diff_attention_naive(qs, k, v, lambda_full, rel_pos if bias else None)
         else:
-            get_attention_core(self.attn_impl)  # raises on an unknown name and 'ring'
+            get_attention_core(self.attn_impl)  # raises on an unknown name
             if core == "chunked":
                 # the JAX router's split groups in plain math, never a kernel
                 attn = router.diff_attention_plain(qs[:, 0::2], k[:, 0::2], qs[:, 1::2], k[:, 1::2], v,
                                                    lambda_full.float())
             else:
-                attn = router.diff_attention_interleaved(qs, k, v, lambda_full.float(), head_local=self.tp is not None)
+                attn = router.diff_attention_interleaved(qs, k, v, lambda_full.float(), head_local=self.tp is not None,
+                                                         impl=self.attn_impl)
 
         attn = self.subln(attn) * (1 - self.lambda_init)
         attn = attn.transpose(1, 2).reshape(B, N, h * 2 * hd)
@@ -287,7 +292,7 @@ class MultiheadDiffAttnCross(_HeadSharded, nn.Module):
     ``q_src`` are NCHW maps tokenised by the reference's raw ``.view``. Each
     softmax group goes through the attention core with the shared v (dv = 2d):
     plain math for ``'xla'`` and ``'chunked'``, the routed core (K2 on the card
-    above the router's limit) for ``'pallas'``. Head-sharded over a mesh's
+    above the router's limit) for ``'pallas'``, the ring for ``'ring'``. Head-sharded over a mesh's
     model axis when it divides ``num_heads``.
     """
 

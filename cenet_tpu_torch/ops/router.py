@@ -23,9 +23,20 @@ on the global batch, so the map counts the local batch times ``data``
 what they hand over. A site whose heads do not divide the model axis is
 replicated and counts the global batch, as JAX's fall-through to the bare
 core does. :func:`shard_heads` is ``flash_attention.py::shard_heads``: a core
-on full heads that runs on the rank's heads and gathers them. The ring
-variant (sequence parallelism) is ROADMAP queue 1 item 11b
-(``nn.attention.get_attention_core`` raises on it).
+on full heads that runs on the rank's heads and gathers them.
+
+``impl='ring'`` (or ``'ring@seq'``) takes the diff-attention routers to the
+JAX package's ring branch (``flash_attention.py:158-166,215-222``): the two
+softmax groups of the split views each ride the ring of
+``ops/ring_attention.py`` (K2 and K4 on every hop on the card), and
+out1 − λ·out2 is formed after, with λ in the activation dtype. On the card
+a site whose groups do not ride the ring (no seq group, N ≠ M, N not a
+multiple of ``seq``) keeps this router's own route and its kernels (K1/K3,
+or K5 on split views); off the card it takes the branch, whose fallback is
+JAX's (query blocks above the limit).
+:func:`chunked_attention_core` is the JAX package's query-block scan
+(``flash_attention.py:119-145``), the ring core's fallback for large maps;
+the ``'chunked'`` name still maps to plain math (``nn/attention.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from cenet_tpu_torch.core import mesh as M
 from cenet_tpu_torch.nn.functional import softmax_fp32
@@ -69,11 +81,51 @@ def _records_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def diff_attention_core(q1, k1, q2, k2, v, lam, head_local: bool = False) -> torch.Tensor:
+def chunked_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_chunk: int = 512) -> torch.Tensor:
+    """softmax(q·kᵀ)·v over blocks of ``q_chunk`` query rows (q pre-scaled),
+    ``cenet_tpu/ops/flash_attention.py::chunked_attention_core``: the tail
+    padded with zero rows, each block's full fp32 softmax rows formed under
+    ``torch.utils.checkpoint`` (its map recomputed in the backward, not
+    saved), so no more than a block's (B, H, q_chunk, M) map exists at once."""
+    n = q.shape[2]
+    c = min(q_chunk, n)
+    pad = (-n) % c
+    if pad:
+        q = torch.cat([q, q.new_zeros(q.shape[:2] + (pad, q.shape[3]))], dim=2)
+    blocks = [torch.utils.checkpoint.checkpoint(plain_attention, blk, k, v, use_reentrant=False)
+              for blk in q.split(c, dim=2)]
+    return torch.cat(blocks, dim=2)[:, :, :n]
+
+
+def _ring_core(impl: str, q: torch.Tensor, k: torch.Tensor):
+    """The ring core when ``impl`` is ``'ring'``/``'ring@axis'`` and the site takes
+    the ring branch (always off the card; on the card only where q and k ride
+    the ring), else None."""
+    core, axis = parse_impl(impl)
+    if core != "ring":
+        return None
+    from cenet_tpu_torch.ops import ring_attention
+
+    ring = ring_attention.make_ring_core(axis or "seq")
+    return ring if q.device.type != "cuda" or ring_attention.ring_mesh(q, k) is not None else None
+
+
+def _ring_diff(core, q1, k1, q2, k2, v, lam, head_local: bool) -> torch.Tensor:
+    """The JAX routers' ring branch: each softmax group rides the ring, then out1 − λ·out2."""
+    out1 = core(q1, k1, v, head_local=head_local)
+    out2 = core(q2, k2, v, head_local=head_local)
+    return out1 - lam.to(out1.dtype) * out2
+
+
+def diff_attention_core(q1, k1, q2, k2, v, lam, head_local: bool = False, impl: str = "pallas") -> torch.Tensor:
     """softmax(q1·k1ᵀ)·V − λ·softmax(q2·k2ᵀ)·V with shared V on split groups
     (q1, q2 ``(B, h, N, d)``, k1, k2 ``(B, h, M, d)``, fp32 λ): the split-group
     kernel above the size limit on the card (``pallas_diff_attention``'s route),
-    else plain math in the reference's A₁V − λA₂V order of operations."""
+    else plain math in the reference's A₁V − λA₂V order of operations; under
+    ``impl='ring'`` each group on the ring, where the site takes the ring branch."""
+    ring = _ring_core(impl, q1, k1)
+    if ring is not None:
+        return _ring_diff(ring, q1, k1, q2, k2, v, lam, head_local)
     b, h, n, _ = q1.shape
     if _use_kernel(q1, _rows(b, head_local) * h * n * k1.shape[2]):
         if _records_grad(q1, k1, q2, k2, v, lam):
@@ -90,16 +142,21 @@ def diff_attention_plain(q1, k1, q2, k2, v, lam) -> torch.Tensor:
     return out1 - lam.to(out1.dtype) * out2
 
 
-def diff_attention_split(q, k, v, lam, head_local: bool = False) -> torch.Tensor:
+def diff_attention_split(q, k, v, lam, head_local: bool = False, impl: str = "pallas") -> torch.Tensor:
     """Diff attention on the interleaved layout through the split groups: the
     even and odd head views of q and k go to :func:`diff_attention_core` (the
     JAX router's decomposition, ``flash_attention.py:245``)."""
-    return diff_attention_core(q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2], v, lam, head_local=head_local)
+    return diff_attention_core(q[:, 0::2], k[:, 0::2], q[:, 1::2], k[:, 1::2], v, lam, head_local=head_local,
+                               impl=impl)
 
 
-def diff_attention_interleaved(q, k, v, lam, head_local: bool = False) -> torch.Tensor:
+def diff_attention_interleaved(q, k, v, lam, head_local: bool = False, impl: str = "pallas") -> torch.Tensor:
     """Diff attention on the projections' interleaved layout: q/k ``(B, 2h, N, d)``
-    with group-1 heads at even rows, shared v ``(B, h, M, 2d)``, fp32 λ."""
+    with group-1 heads at even rows, shared v ``(B, h, M, 2d)``, fp32 λ. Under
+    ``impl='ring'`` the split groups, each on the ring, where the site takes
+    the ring branch."""
+    if _ring_core(impl, q, k) is not None:
+        return diff_attention_split(q, k, v, lam, head_local=head_local, impl=impl)
     b, h2, n, _ = q.shape
     if _use_kernel(q, (_rows(b, head_local) * h2 // 2) * n * k.shape[2]):
         if _records_grad(q, k, v, lam):

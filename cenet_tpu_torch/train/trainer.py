@@ -20,15 +20,21 @@ the JAX ``trainer.eval_step`` over ``evaluate/predict.py::make_predict_fn``.
 CENet or, with ``model_version='cenet_org'``, CENetOrg, on any encoder;
 ``freeze_bb`` freezes its ``backbone`` (PVT or ResNet).
 
-``mesh`` (``core/mesh.py``) runs the step on the ``('data', 'model')`` mesh,
-one rank per process, without a ``DistributedDataParallel`` wrapper (its
+``mesh`` (``core/mesh.py``) runs the step on the ``('data', 'seq', 'model')``
+mesh, one rank per process, without a ``DistributedDataParallel`` wrapper (its
 reducer fires on ``.grad`` accumulation, which ``torch.autograd.grad`` never
 does). The trainer registers its mesh before every step, so BatchNorm, the
 losses, drop-path and the CCU take the global batch; under a model axis it
-tags ``attn_impl`` with ``'@model'`` as the JAX ``Trainer`` does and shards
-the attention sites whose heads divide it. ``train_step`` takes the rank's
-rows of the global batch (``mesh.rows``) and averages every gradient over the
-data group after the backward. ``state_dict`` is the gathered full state,
+tags ``attn_impl`` with ``'@model'`` as the JAX ``Trainer`` does (not
+``'ring'``, whose '@axis' names the seq axis) and shards the attention sites
+whose heads divide it. ``train_step`` takes the rank's rows of the global
+batch (``mesh.rows``; the ranks of a seq group take the same rows) and
+averages every gradient over the data group after the backward. The ranks of
+a seq group compute the same gradients, the ring sites' included (their
+blocks are gathered); the card's nondeterministic kernels (cuDNN's weight
+gradients, atomics) can still round them apart in the last bits, so the seq
+group's first rank broadcasts its gradients to the others, and the replicas
+never drift. Nothing is summed over ``seq``. ``state_dict`` is the gathered full state,
 the same on every rank; ``load_state_dict`` takes a full one and shards it;
 ``eval_step`` takes the whole batch and returns all of it
 (``evaluate/predict.py::shard_rows``).
@@ -108,10 +114,13 @@ class Trainer:
     def _check_replicas(self) -> None:
         """Raise unless the ranks that should hold the same weights do: the
         replicated parameters on every rank, each sharded piece over its data
-        group (one float64 checksum each, compared by all-reduce)."""
+        group and its seq group (one float64 checksum each, compared by
+        all-reduce)."""
         params = dict(self.model.named_parameters())
-        for group, names in ((None, [n for n in params if n not in self.tp_plan]),
-                             (self.mesh.data_group, list(self.tp_plan))):
+        checks = [(None, [n for n in params if n not in self.tp_plan]), (self.mesh.data_group, list(self.tp_plan))]
+        if self.mesh.seq_group is not None:
+            checks.append((self.mesh.seq_group, list(self.tp_plan)))
+        for group, names in checks:
             total = torch.zeros(2, dtype=torch.float64, device=self.device)
             with torch.no_grad():
                 for n in names:
@@ -120,14 +129,17 @@ class Trainer:
             if not M.agree(total, group):
                 raise RuntimeError("the ranks' initial weights differ; build every rank's model from the same seed")
 
-    def _mean_over_data(self, grads):
-        """Every gradient averaged over the data group, in one all-reduce."""
-        group = self.mesh.data_group
+    def _synced(self, grads):
+        """Every gradient averaged over the data group, then the seq group's
+        first rank's on every rank of the group: one all-reduce and one
+        broadcast of all of them."""
         present = [g for g in grads if g is not None]
-        if group is None or not present:
+        if self.mesh.data_group is None or not present:
             return grads
         flat = torch.cat([g.reshape(-1) for g in present])
-        torch.distributed.all_reduce(flat, group=group)
+        torch.distributed.all_reduce(flat, group=self.mesh.data_group)
+        if self.mesh.seq_group is not None:
+            torch.distributed.broadcast(flat, src=self.mesh.seq_ranks[0], group=self.mesh.seq_group)
         pieces = iter(torch.split(flat / self.mesh.data, [g.numel() for g in present]))
         return [None if g is None else next(pieces).view_as(g) for g in grads]
 
@@ -199,7 +211,7 @@ class Trainer:
             loss = loss / accum
             grads = [None if g is None else g / accum for g in grads]
         if self.mesh is not None:
-            grads = self._mean_over_data(grads)
+            grads = self._synced(grads)
         params = dict(self.model.named_parameters())  # the order of loss_and_grads' gradients
         self.optimizer.step(params, dict(zip(params, grads)))
         return loss

@@ -160,6 +160,25 @@ runs K10. Phases:
    1`` for one epoch and ``cli eval --mesh 1`` of its snapshot, its JSON equal
    to ``cli eval`` without a mesh to 1e-6; the ``kernels`` line's
    ``mesh_launches`` holds the ranks' launches;
+   6i. the ``seq`` axis and ring attention (run after 6h), the Synapse preset
+   at 448², batch 2, TF32 off for the fp32 comparisons: two ranks in fresh
+   processes share the card over gloo with the mesh (1, 1, 2) and
+   ``attn_impl='ring'`` (gloo's point-to-point reads host memory, so the
+   ring's hop goes through host copies there): (a) the ring core alone at
+   dec1's and DSEB1's 112² shapes, K2 and K4 on each of its two hops, held on
+   each rank's token block against the kernels' twins under phases 2 and
+   2b's fp32 and bf16 limits; (b) two fp32 SGD steps against the one-process
+   steps (K1–K4 routed) under 6h's limits, the seq ranks' weights and
+   BatchNorm statistics equal to the bit after them; (c) one bf16 step whose
+   launches a rank must be ``RING_PER_STEP`` (26 K2, 26 K4: 13 ring sites,
+   two hops; no K1/K3), its peak memory beside the one-process step's;
+   meanwhile in this process (d) ``cli eval --mesh 1,1,2 --attn_impl ring`` on
+   phase 4's cases at 224² (its mode function over a gloo group, this process
+   rank 0), labels agreeing with phase 4's on ≥ 99.9% of voxels, equal on
+   both ranks, 18 K2 a chunk on each; then rank 0 takes the one-process steps
+   and (e) one bf16 step with ``'ring'`` and no mesh, whose fallback sites
+   must launch the one-process step's K1–K4; the ``kernels`` line's
+   ``ring_launches`` holds the ranks' launches (the step's and the eval's);
 7. where one training step's time goes: ``torch.profiler`` over one bf16 step
    (the card's busy time, and the host's), which must show the tensor-core
    kernels of K1–K4 and no CUDA-core instance of any of them;
@@ -212,6 +231,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available")
 
+from cenet_tpu_torch.core import mesh as M  # noqa: E402
 from cenet_tpu_torch.core.config import get_preset  # noqa: E402
 from cenet_tpu_torch.data import augment  # noqa: E402
 from cenet_tpu_torch.data.loader import Loader, device_put_fn  # noqa: E402
@@ -1322,7 +1342,7 @@ def phase_volume():
 def twin_route():
     """While open, the DSEB sites take K1's fp32 twin in place of the kernel
     (the Pallas rounding points in fp32 torch, in slices of 2)."""
-    def twin(q, k, v, lam, head_local=False):  # one process: the batch is the global one
+    def twin(q, k, v, lam, head_local=False, impl="pallas"):  # one process: the batch is the global one
         return torch.cat([K.diff_attention_interleaved_fwd_plain(*piece((q, k, v, lam), i))[0]
                           for i in range(0, q.shape[0], 2)])
 
@@ -2798,6 +2818,308 @@ def mesh_cli(root):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6i: the seq axis, ring attention on torch.distributed
+# ---------------------------------------------------------------------------
+
+RING_IMG, RING_B = 448, 2  # the inputs the ring exists for, at the batch that fits two ranks on one card
+# CENet-b2 at 448²: DSEB1–3 (two rings each, 112², 56², 28² tokens), the four CFAM
+# Nonlocals (dec1–dec4, 112² … 14²) and PVT stage 4's three SRA blocks (sr 1, 14²):
+# 13 ring sites, 2 hops each on a seq axis of 2, per rank; no site left for K1/K3
+RING_SITES_448 = 13
+RING_PER_STEP = {"attention_fwd": 2 * RING_SITES_448, "attention_bwd": 2 * RING_SITES_448}
+# at 224² (the eval chunk) dec4 and PVT stage 4 have 7² = 49 tokens, odd: they take
+# the plain fallback, so 9 ring sites, 18 K2 a chunk on each rank
+RING_PER_CHUNK = {"attention_fwd": 2 * 9}
+# the one-process step at 448², batch 2 ('pallas'): K1/K3 at DSEB1–3, K2/K4 at dec1
+# and dec2 (dec3's 784² map is under the router's 32 MB)
+ONE_PROCESS_448 = {"diff_attention_interleaved_fwd": 3, "diff_attention_interleaved_bwd": 3, "attention_fwd": 2,
+                   "attention_bwd": 2}
+# (a)'s sites at 448²: (site, h, n, d, dv) of the ring core alone
+RING_SITES = [("dec1", 1, 12544, 64, 64), ("DSEB1", 8, 12544, 8, 16)]
+
+
+def ring_config(amp, impl):
+    """The Synapse preset at 448² with ``attn_impl`` ``impl``, bf16 (``amp``) or fp32."""
+    base = get_preset("synapse")
+    return base.replace(model=dataclasses.replace(base.model, attn_impl=impl),
+                        data=dataclasses.replace(base.data, img_size=RING_IMG),
+                        train=dataclasses.replace(base.train, amp=amp))
+
+
+def ring_steps(mesh=None, impl="pallas"):
+    """``MESH_STEPS`` fp32 steps at 448², batch 2 (``mesh_steps``' record), the
+    preset's seed; on ``mesh`` with ``impl``, or in one process."""
+    x, y = labelled_slices(37, RING_B, RING_IMG)
+    tr = Trainer(ring_config(False, impl), 10, device=DEV if mesh is None else mesh.device, mesh=mesh)
+    init = {k: v.detach().cpu().clone() for k, v in tr.state_dict()["state_dict"].items()}
+    x, y = x.to(tr.device), y.to(tr.device)
+    losses = [float(tr.train_step(x, y)) for _ in range(MESH_STEPS)]
+    full = tr.state_dict()
+    slots = {n: s["trace"].cpu() for n, s in full["optimizer"]["state"].items()}
+    return {"losses": losses, "state": {k: v.cpu() for k, v in full["state_dict"].items()}, "slots": slots,
+            "init": {k: init[k] for k in slots}, "trainer": tr}
+
+
+def ring_bf16_step(mesh=None, impl="pallas"):
+    """One bf16 step of the preset at 448², batch 2: loss, launches, peak memory (GB)."""
+    x, y = labelled_slices(37, RING_B, RING_IMG)
+    tr = Trainer(ring_config(True, impl), 10, device=DEV if mesh is None else mesh.device, mesh=mesh)
+    x, y = x.to(DEV), y.to(DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    loss = float(tr.train_step(x, y))
+    torch.cuda.synchronize()
+    out = {"loss": loss, "launches": dict(K.LAUNCHES), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_grads_check(call, got, idx, where):
+    """Gradients ``got`` (those of ``idx`` among dq, dk, dv) of the ring against
+    K4's twin on ``call`` = (q, k, v, o, lse, dO), under ``grad_limits``."""
+    want, want_r = bwd_refs("attention_bwd", call)
+    names = [("dq", "dk", "dv")[i] for i in idx]
+    lims = grad_limits(call[0].dtype, [want[i] for i in idx], [want_r[i] for i in idx])
+    out = {}
+    for name, g, i, (lim, nlim) in zip(names, got, idx, lims):
+        e, ne = amax(g.float() - want[i]), rel_norm(g, want[i])
+        out.update({f"{name}_err": e, f"{name}_limit": lim, f"{name}_norm_err": ne, f"{name}_norm_limit": nlim})
+        check(g.dtype == call[0].dtype and e <= lim and ne <= nlim,
+              f"ring at {where}: {name} err {e} (limit {lim}), norm err {ne} (limit {nlim})")
+    return out
+
+
+def ring_core_checks(mesh):
+    """Phase 6i (a) on one rank: the ring core's forward and backward (``ring_forward``,
+    ``ring_backward``: K2 and K4 on every hop) on this rank's token block at
+    dec1's and DSEB1's 448² shapes, batch 2, fp32 and bf16, held against the
+    kernels' twins on the same inputs: o and the LSE of the block's query rows
+    (``fwd_check``), dq of those rows against the twin on them, dk and dv of the
+    block's keys against the twin over every query row with the gathered O and
+    LSE (``ring_grads_check``); per batch row. Two hops of each kernel."""
+    from cenet_tpu_torch.ops import ring_attention as RA
+
+    out = {}
+    for site, h, n, d, dv in RING_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=DEV).manual_seed(n + d)
+            q, k, v = site_inputs("attention_fwd", RING_B, h, n, d, dv, dtype, gen)
+            do = torch.randn(RING_B, h, n, dv, generator=gen, device=DEV).to(dtype)
+            blk = slice(mesh.s * n // mesh.seq, (mesh.s + 1) * n // mesh.seq)
+            qb, kb, vb, dob = (t[:, :, blk] for t in (q, k, v, do))
+            K.reset_launches()
+            ob, lseb = RA.ring_forward(qb, kb, vb, mesh)
+            grads = RA.ring_backward(qb, kb, vb, ob, lseb, dob, mesh)
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            o, lse = (M.gather_cat(t, mesh.seq_group, mesh.seq, dim=2) for t in (ob, lseb))
+            where = f"{site} {str(dtype)[6:]} rank {mesh.s}"
+            rec = {"launches": launches,
+                   **in_slices(fwd_check, "attention_fwd", [qb, k, v], [ob, lseb], where, step=1),
+                   **in_slices(lambda _, a, g, w: ring_grads_check(a, g, (0,), w), "attention_bwd",
+                               [qb, k, v, ob, lseb, dob], [grads[0]], where, step=1),
+                   **in_slices(lambda _, a, g, w: ring_grads_check(a, g, (1, 2), w), "attention_bwd",
+                               [q, kb, vb, o, lse, do], list(grads[1:]), where, step=1)}
+            check_launches(launches, {"attention_fwd": mesh.seq, "attention_bwd": mesh.seq}, 1, f"ring core at {where}")
+            out[where] = rec
+            del q, k, v, do, grads, o, lse
+            torch.cuda.empty_cache()
+    return out
+
+
+def ring_rank(rank, port, out_path):
+    """One of phase 6i's two ranks of the (1, 1, 2) mesh, sharing ``cuda:0`` over
+    gloo: (a) the ring core alone, (b) two fp32 steps of the preset at 448²
+    with ``attn_impl='ring'`` (the record that ``mesh_against`` holds to the
+    one-process steps) and whether the seq ranks' weights (and BatchNorm
+    statistics) agree to the bit after them, (c) one bf16 step with its
+    launches and peak memory; then rank 0 alone takes the one-process steps
+    (two fp32 with K1–K4 routed, one bf16), which (b) and (c) are held to,
+    and (e) one bf16 step with ``attn_impl='ring'`` and no mesh registered
+    (every ring site falls back: its kernels must be the routed ones)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda:0", timeout_s=600)
+    out = {}
+    try:
+        mesh = M.make_mesh(M.MeshConfig(data=1, model=1, seq=2), device="cuda:0")
+        M.set_attention_mesh(mesh)
+        t0 = time.perf_counter()
+        out["core"] = ring_core_checks(mesh)
+        out["core_s"] = time.perf_counter() - t0
+        M.set_attention_mesh(None)
+        t0 = time.perf_counter()
+        run = ring_steps(mesh, "ring")
+        tr = run.pop("trainer")
+        with torch.no_grad():
+            params = torch.cat([p.detach().double().reshape(-1) for p in tr.model.parameters()])
+            buffers = torch.cat([b.detach().double().reshape(-1) for b in tr.model.buffers()])
+        out["fp32"] = {"run": run, "seconds": time.perf_counter() - t0, "impl": tr.cfg.model.attn_impl,
+                       "weights_agree": M.agree(params, mesh.seq_group),
+                       "statistics_agree": M.agree(buffers, mesh.seq_group)}
+        del tr
+        torch.cuda.empty_cache()
+        out["bf16"] = ring_bf16_step(mesh, "ring")
+    finally:
+        M.shutdown_distributed()
+    if rank == 0:  # the one-process steps, on the same card once the ranks are done
+        ref = ring_steps()
+        del ref["trainer"]
+        torch.cuda.empty_cache()
+        out["one"] = {"ref": ref, "bf16": ring_bf16_step(), "ring_off_mesh": ring_bf16_step(impl="ring")}
+    torch.save(out, out_path)
+
+
+RING_RANK = r"""
+import sys
+import chip_smoke
+chip_smoke.ring_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+"""
+
+
+def ring_eval_rank(rank, port, pth, out_dir, cases, memo=None):
+    """Phase 6i (d) on one rank: ``cli eval --mesh 1,1,2 --attn_impl ring`` of
+    ``pth`` over ``cases`` in memory, its mode function (``cli.run_eval``) on
+    the mesh that its parsed ``--mesh`` names, this process joined to the
+    two-rank group over gloo at ``port`` (the CLI's own launcher would take
+    NCCL, one card a rank). Returns the labels of each case, the launches and
+    the result (rank 0 computes the metrics, through ``memo`` when given)."""
+    from cenet_tpu_torch.cli import main as cli
+
+    argv = ["eval", "--preset", "synapse", "--checkpoint", pth, "--output_dir", out_dir, "--mesh", "1,1,2",
+            "--attn_impl", "ring"]
+    args = cli.build_argparser().parse_args(argv)
+    M.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", device=DEV, timeout_s=600)
+    labels, predict = [], VOL.VolumeInferencer.predict_volume
+
+    def recorded(self, image):
+        labels.append(predict(self, image))
+        return labels[-1]
+
+    VOL.VolumeInferencer.predict_volume = recorded
+    try:
+        mesh = M.make_mesh(cli._mesh_config(args), device=DEV)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), (memo.installed() if memo else contextlib.nullcontext()):
+            result = cli.run_eval(cli.make_config(args), args, test_set=InMemoryVolumes(cases), mesh=mesh)
+        seconds = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        VOL.VolumeInferencer.predict_volume = predict
+        M.shutdown_distributed()
+    return {"labels": labels, "launches": launches, "result": result, "seconds": seconds, "seq": mesh.seq}
+
+
+RING_EVAL_RANK = r"""
+import sys
+import numpy as np
+import torch
+import chip_smoke
+out = chip_smoke.ring_eval_rank(1, int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                [chip_smoke.synthetic_case(1), chip_smoke.synthetic_case(2)])
+torch.save({"labels": [np.asarray(x) for x in out["labels"]], "launches": out["launches"]}, sys.argv[4])
+"""
+
+
+def start_ring_eval(tmp):
+    """Phase 6i (d)'s rank 1 in a fresh process, on phase 4's weights saved in
+    ``tmp``: (the process, the port, the checkpoint, where it writes its labels)."""
+    pth = os.path.join(tmp, "cenet_b2.pth")
+    torch.save(build_model(get_preset("synapse"), device=DEV, seed=0).state_dict(), pth)  # phase 4's weights
+    port, out = M.free_port(), os.path.join(tmp, "eval_rank1.pt")
+    child = subprocess.Popen([sys.executable, "-c", RING_EVAL_RANK, str(port), pth, os.path.join(tmp, "out1"), out],
+                             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    return child, port, pth, out
+
+
+def phase_ring(volume):
+    """6i: the ``seq`` axis (``core/mesh.py``) and ring attention
+    (``ops/ring_attention.py``) on the Synapse preset at 448², batch 2, TF32 off
+    for the fp32 comparisons. Two ranks in fresh processes share the card over
+    gloo with the mesh (1, 1, 2) and ``attn_impl='ring'``: (a) the ring core
+    alone at dec1's and DSEB1's shapes against the kernels' twins (fp32 and
+    bf16 limits of phases 2, 2b), (b) two fp32 steps held to the one-process
+    steps ('pallas': K1–K4 routed, which rank 0 takes after the mesh's) under
+    phase 6h's limits, the seq ranks' weights equal to the bit after them,
+    (c) one bf16 step whose K2/K4 launches a rank must be ``RING_PER_STEP``
+    and nothing else (no K1/K3 at a ringed site), its peak memory beside the
+    one-process step's. Meanwhile here (d) ``cli eval --mesh 1,1,2
+    --attn_impl ring`` over phase 4's cases at 224², this process rank 0
+    (``ring_eval_rank``) and a fresh one rank 1: labels agreeing with
+    phase 4's (``cli eval`` without a mesh, phase 4d) on ≥ 99.9% of voxels,
+    equal on both ranks, K2 launched ``RING_PER_CHUNK`` a chunk. Last (e)
+    ``attn_impl='ring'`` in one process without a mesh: the fallback keeps the
+    kernels, so its bf16 step launches the one-process step's K1–K4
+    (``ONE_PROCESS_448``) and its loss is that step's within 2·2^-8. Returns
+    the launches: the ranks' bf16 step and eval run, by rank."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = M.free_port()
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, "-c", RING_RANK, str(r), str(port), outs[r]],
+                                  cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        child, eval_port, pth, child_out = start_ring_eval(tmp)
+        try:
+            memo = volume["metrics"]
+            memo.misses = 0
+            t_eval = time.perf_counter()
+            lead = ring_eval_rank(0, eval_port, pth, os.path.join(tmp, "out0"), volume["cases"], memo)
+            eval_s = time.perf_counter() - t_eval
+            logs = [p.communicate(timeout=900)[0] for p in (child, *procs)]
+        finally:
+            for p in (child, *procs):
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for name, p, log in zip(("eval rank 1", "rank 0", "rank 1"), (child, *procs), logs):
+            check(p.returncode == 0, f"ring {name} failed (gloo on one card):\n{log[-4000:]}")
+        other = torch.load(child_out, weights_only=False)
+        ranks = [torch.load(o, weights_only=True) for o in outs]
+    ref, off_mesh = ranks[0]["one"]["ref"], ranks[0]["one"]["ring_off_mesh"]
+    one = ranks[0].pop("one")["bf16"]
+    for run in ranks:
+        run["fp32"].update(mesh_against(ref, run["fp32"].pop("run")))
+    preds = [volume["preds"][c["case_name"]] for c in volume["cases"]]
+    agree = agreement(lead["labels"], preds)
+    chunks = sum(-(-c["image"].shape[0] // CHUNK) for c in volume["cases"])
+    emit({"phase": "ring", "reference_losses": ref["losses"], "one_process_bf16": one, "ranks": ranks,
+          "eval": {"result": lead["result"], "label_agree_vs_phase_4": agree, "launches": [lead["launches"],
+                   other["launches"]], "seconds": lead["seconds"], "metric_misses": memo.misses},
+          "eval_s": eval_s, "seconds": time.perf_counter() - t_phase,
+          "ranks_peak_mem_gb": [r["bf16"]["peak_mem_gb"] for r in ranks],
+          "one_process_peak_mem_gb": one["peak_mem_gb"], "ring_off_mesh_bf16": off_mesh})
+    check_launches(one["launches"], ONE_PROCESS_448, 1, "ring: the one-process bf16 step at 448²")
+    check_launches(off_mesh["launches"], ONE_PROCESS_448, 1, "ring (e): 'ring' without a mesh, bf16 step at 448²")
+    check(abs(off_mesh["loss"] - one["loss"]) <= 2 * 2 ** -8 * abs(one["loss"]),
+          f"ring (e): loss {off_mesh['loss']} against the one-process step's {one['loss']}")
+    for r, run in enumerate(ranks):
+        check(mesh_within(run["fp32"]) and run["fp32"]["impl"] == "ring",
+              f"ring (b), rank {r}, against one process: {run['fp32']}")
+        check(run["fp32"]["weights_agree"], "ring (b): the seq ranks' weights differ after the steps")
+        check(run["fp32"]["statistics_agree"], "ring (b): the seq ranks' BatchNorm statistics differ after the steps")
+        check_launches(run["bf16"]["launches"], RING_PER_STEP, 1, f"ring (c), rank {r}'s bf16 step")
+        check(np.isfinite(run["bf16"]["loss"]), f"ring (c), rank {r}: loss {run['bf16']['loss']}")
+    check(sum(r["bf16"]["peak_mem_gb"] for r in ranks) <= 80.0, "ring (c): the two ranks exceed the card's 80 GB")
+    for r, got in enumerate((lead["launches"], other["launches"])):
+        check_launches(got, RING_PER_CHUNK, chunks, f"ring (d), rank {r}'s cli eval, {chunks} chunks")
+    check(lead["seq"] == 2 and agree >= 0.999, f"ring (d): labels agree with phase 4's on {agree}")
+    check(all(np.array_equal(a, b) for a, b in zip(lead["labels"], other["labels"])),
+          "ring (d): the two ranks' labels differ")
+    launches = {}
+    for tag, per_rank in (("step", [r["bf16"]["launches"] for r in ranks]),
+                          ("eval", [lead["launches"], other["launches"]])):
+        for r, got in enumerate(per_rank):
+            for k, n in got.items():
+                launches.setdefault(k, {}).setdefault(tag, [0, 0])[r] = n
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6g: remat, --model_stats, the profiler hook, debug, device augmentation
 # ---------------------------------------------------------------------------
 
@@ -3639,7 +3961,6 @@ def main():
     launches["volume"], volume = phase_volume()
     launches.update({"volume-split": phase_split_volume(), "volume-swapped": phase_swapped_volume(),
                      "cli-eval": phase_cli_eval(volume)})
-    del volume
     phase_profile()
     with tempfile.TemporaryDirectory() as train_root:
         launches["train"], trainer, images, labels, train_img_per_s, train_wait_ms = phase_train(train_root)
@@ -3653,6 +3974,8 @@ def main():
         launches["cli-train"] = phase_cli_train(train_root, train_img_per_s)
         launches["remat"] = phase_remat(train_root, train_wait_ms)
         mesh_launches = phase_mesh(train_root)
+    ring_launches = phase_ring(volume)
+    del volume
     launches["acdc"] = phase_acdc()
     launches["ph2"] = phase_skin("ph2")
     launches["cenet_org"] = phase_zoo("cenet_org", "pvt_v2_b2", "cenet_org")
@@ -3672,6 +3995,7 @@ def main():
             "cenet_org_launches": launches["cenet_org"].get(name, 0),
             "resnet50_launches": launches["resnet50"].get(name, 0),
             "mesh_launches": {mesh: mesh_launches.get(name, {}).get(mesh, [0, 0]) for mesh in MESH_CASES},
+            "ring_launches": {tag: ring_launches.get(name, {}).get(tag, [0, 0]) for tag in ("step", "eval")},
             "max_abs_err": err,
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": bound_by(total("ops_ms"), total("bytes_ms")),

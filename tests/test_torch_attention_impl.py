@@ -1,8 +1,8 @@
 """The port's ``attn_impl`` names and unported options, on the CPU.
 
 ``get_attention_core`` maps the JAX package's names as
-``cenet_tpu/nn/attention.py::get_attention_core`` does, and raises where the
-port has no counterpart yet; ``MultiheadDiffAttn`` takes its naive path for
+``cenet_tpu/nn/attention.py::get_attention_core`` does ('ring' included),
+and raises on a name it does not know; ``MultiheadDiffAttn`` takes its naive path for
 every impl whose core is ``'xla'``; ``build_model`` honours ``train.remat``
 for CENet's PVT encoder, and CENetOrg ignores it.
 Small modules only, and no JAX compile: the JAX side is asked only which
@@ -40,18 +40,23 @@ def test_unknown_attention_impl_raises_as_in_jax(impl):
 
 @pytest.mark.parametrize("impl", ["ring", "ring@seq", "pallas@model", "xla@model", "chunked@model"])
 def test_ring_and_axis_impls_are_not_ported(impl):
-    """Ring attention (the 'seq' axis) is not ported and raises naming its
-    item; an '@model' impl is ported, and without a registered mesh its core
-    is the bare core's function (``router.shard_heads`` falls through)."""
-    if impl.startswith("ring"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11b"):
-            tatt.get_attention_core(impl)
-        return
+    """Ring attention (the 'seq' axis) raised naming its ROADMAP item before
+    its port, and an '@model' impl was ported first. Now both run, and
+    without a registered mesh the core of each is the bare core's function
+    (``router.shard_heads`` falls through, the ring core takes plain math)."""
     core = tatt.get_attention_core(impl)
-    bare = tatt.get_attention_core(router.parse_impl(impl)[0])
+    bare = tatt.get_attention_core("pallas" if impl.startswith("ring") else router.parse_impl(impl)[0])
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 4, 9, 8, generator=g) for _ in range(3))
     assert torch.equal(core(q, k, v), bare(q, k, v))
+
+
+@pytest.mark.parametrize("impl", ["ring@model", "ring@data"])
+def test_ring_over_another_axis_raises(impl):
+    """The port's ring carries tokens over 'seq' only: its data and model ranks
+    hold other rows and heads."""
+    with pytest.raises(ValueError, match="'seq' axis only"):
+        tatt.get_attention_core(impl)
 
 
 @pytest.mark.parametrize("impl,core,axis", [("pallas@model", "pallas", "model"), ("xla", "xla", None),
@@ -92,14 +97,18 @@ def test_chunked_diff_attention_is_plain_math(monkeypatch):
     assert (got - want).abs().max() <= 1e-5
 
 
-@pytest.mark.parametrize("impl,error", [("bogus", ValueError), ("ring@seq", NotImplementedError),
-                                        ("ring", NotImplementedError)])
+@pytest.mark.parametrize("impl,error", [("bogus", ValueError), ("ring@seq", None), ("ring", None)])
 def test_diff_attention_rejects_unported_impls(impl, error):
-    """An unknown name and ring attention (not ported, ROADMAP queue 1 item
-    11b) raise; '@model' runs (``test_ring_and_axis_impls_are_not_ported``)."""
+    """An unknown name raises. Ring attention raised before its port; now
+    ``'ring'`` and ``'ring@seq'`` run, and without a registered mesh they are
+    the plain split groups, as ``'pallas'`` is on the CPU."""
     x = torch.randn(1, 16, 32)
-    with torch.no_grad(), pytest.raises(error):
-        _diff_attn(impl)(x)
+    with torch.no_grad():
+        if error is not None:
+            with pytest.raises(error):
+                _diff_attn(impl)(x)
+            return
+        assert torch.equal(_diff_attn(impl)(x), _diff_attn("pallas")(x))
 
 
 @pytest.mark.parametrize("preset", ["synapse", "acdc", "ham10000", "ph2"])

@@ -169,12 +169,14 @@ def test_cli_eval_npz_equals_pth(data):
 
 @pytest.mark.parametrize("argv, message", [
     (["bench", "--preset", "synapse"], "ROADMAP queue 1 items 1 and 5"),
-    (["eval", "--preset", "synapse", "--mesh", "1,1,2"], "ROADMAP queue 1 item 11b"),
+    (["eval", "--preset", "synapse", "--mesh", "1,1,2,2"], "at most data,model,seq"),
     (["eval", "--preset", "synapse", "--coordinator", "localhost:1234"], "--coordinator needs --num_processes"),
 ])
 def test_unported_modes_presets_and_options_exit(argv, message):
-    """What the CLI does not run exits before any work: ``bench`` and the
-    ``seq`` mesh axis naming the ROADMAP item that ports them, and a
+    """What the CLI does not run exits before any work: ``bench`` naming the
+    ROADMAP item that ports it, a mesh of more axes than data, model and seq
+    (``--mesh 1,1,2``, which exited naming item 11b before the seq axis was
+    ported, runs: ``tests/test_torch_ring.py``), and a
     ``--coordinator`` without the host count and index it needs."""
     with pytest.raises(SystemExit, match=message):
         cli.main(argv)

@@ -1149,6 +1149,68 @@ def test_cuda_device_augment_matches_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_ring_without_a_mesh_takes_the_kernels(cuda):
+    """``'ring'`` where the ring does not run (no mesh registered) and the map
+    is above the router's 32 MB keeps the card's kernels: a ``Nonlocal``-like
+    site (batch 2, 3136² tokens, d 64) launches K2 and K4, and the diff
+    route (DSEB1 of CENet-b0 at 224²: 3136 tokens, head dim 8) K1 and K3,
+    each equal to the bit to ``'pallas'`` on the same inputs, forward and
+    gradients (the same kernels on the same tensors)."""
+    from cenet_tpu_torch.core import mesh as M
+    from cenet_tpu_torch.nn.attention import get_attention_core
+    from cenet_tpu_torch.ops import router
+
+    M.set_attention_mesh(None)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    qkv = [torch.randn(2, 1, 3136, 64, generator=gen, device=cuda) for _ in range(3)]
+    diff = [torch.randn(s, generator=gen, device=cuda) for s in ((2, 8, 3136, 8), (2, 8, 3136, 8), (2, 4, 3136, 16))]
+    lam = torch.tensor(0.35, device=cuda)
+    cases = [("attention", lambda impl, q, k, v: get_attention_core(impl)(q, k, v), qkv,
+              {"attention_fwd": 1, "attention_bwd": 1}),
+             ("diff", lambda impl, q, k, v, lam: router.diff_attention_interleaved(q, k, v, lam, impl=impl),
+              diff + [lam], {"diff_attention_interleaved_fwd": 1, "diff_attention_interleaved_bwd": 1})]
+    for name, run, inputs, launches in cases:
+        got = {}
+        for impl in ("ring", "pallas"):
+            xs = [t.clone().requires_grad_() for t in inputs]
+            K.reset_launches()
+            out = run(impl, *xs)
+            out.backward(torch.ones_like(out))
+            torch.cuda.synchronize()
+            assert {k: n for k, n in K.LAUNCHES.items() if n} == launches, (name, impl, dict(K.LAUNCHES))
+            got[impl] = [out.detach()] + [x.grad for x in xs]
+        assert all(torch.equal(a, b) for a, b in zip(got["ring"], got["pallas"])), name
+
+
+@pytest.mark.cuda
+def test_cuda_ring_two_ranks_share_the_card_over_gloo(cuda):
+    """``chip_smoke.py`` phase 6i (b) at small size: two ranks on ``cuda:0``
+    over gloo, mesh (1, 1, 2) with ``attn_impl='ring'`` (K2 and K4 on every
+    hop of every ring site, the hops through host copies), 2 fp32 SGD steps of
+    CENet-b0 at 64 px against the one-process steps on the card under
+    ``test_cuda_two_ranks_share_the_card_over_gloo``'s limits, and the two
+    ranks' states equal to the bit."""
+    import torch_mesh_ranks as R
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(attn_impl="ring")
+    got = R.run_ranks("rank_train", 2, {"cases": [(kw, (1, 1, 2))], "device": "cuda:0"}, device="cuda:0",
+                      backend="gloo")
+    want = R.train(R.dp_config(**kw), device="cuda")
+    for rank in got:
+        run = rank["train"][0]
+        assert run["impl"] == "ring"
+        np.testing.assert_allclose(run["losses"], want["losses"], rtol=2e-4)
+        ref = want["state"]["state_dict"]
+        assert max((run["state"]["state_dict"][k].double() - ref[k].double()).abs().max().item() for k in ref) < 5e-4
+        errs = R.relative_errors(run["state"], want["state"], want["init"])
+        assert max(errs["update"][0], errs["slot"][0]) < R.WHOLE_RTOL, errs
+        assert max(errs["update"][1], errs["slot"][1]) < R.TENSOR_RTOL, errs
+    s0, s1 = (rank["train"][0]["state"]["state_dict"] for rank in got)
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+@pytest.mark.cuda
 def test_cuda_two_ranks_share_the_card_over_gloo(cuda):
     """``chip_smoke.py`` phase 6h (b) at small size: two ranks on ``cuda:0``
     over gloo, meshes (2, 1) and (1, 2), 2 fp32 SGD steps of CENet-b0 at 64 px

@@ -46,21 +46,41 @@ def test_rank_layout_is_jax_make_mesh(data, model):
     for rank in range(data * model):
         pos = M.Mesh(data, model, rank, CPU)
         assert ids[pos.d][pos.m] == rank
-    data_ranks, model_ranks = M.axis_ranks(data, model)
+    data_ranks, model_ranks, seq_ranks = M.axis_ranks(data, model)
     assert data_ranks == [[ids[d][m] for d in range(data)] for m in range(model)]
     assert model_ranks == ids
+    assert seq_ranks == [[r] for row in ids for r in row]  # one rank a seq group
     assert M.Mesh(data, model, data * model - 1, CPU).rows(8 * data) == slice(8 * data - 8, 8 * data)
 
 
+@pytest.mark.parametrize("data,model,seq", [(4, 1, 2), (2, 2, 2), (1, 2, 4), (1, 1, 8)])
+def test_rank_layout_with_seq_is_jax_make_mesh(data, model, seq):
+    """With a seq axis rank r sits where JAX's ``make_mesh`` puts device r on
+    its ``(data, seq, model)`` grid, and the three groups are its lines; the
+    ranks of a seq group take the same rows."""
+    devices = jmesh.make_mesh(jmesh.MeshConfig(data=data, model=model, seq=seq)).devices
+    ids = {(d, s, m): devices[d, s, m].id for d in range(data) for s in range(seq) for m in range(model)}
+    for rank in range(data * seq * model):
+        pos = M.Mesh(data, model, rank, CPU, seq=seq)
+        assert ids[(pos.d, pos.s, pos.m)] == rank
+        assert pos.rows(4 * data) == slice(4 * pos.d, 4 * pos.d + 4)
+    data_ranks, model_ranks, seq_ranks = M.axis_ranks(data, model, seq)
+    assert data_ranks == [[ids[(d, s, m)] for d in range(data)] for s in range(seq) for m in range(model)]
+    assert model_ranks == [[ids[(d, s, m)] for m in range(model)] for d in range(data) for s in range(seq)]
+    assert seq_ranks == [[ids[(d, s, m)] for s in range(seq)] for d in range(data) for m in range(model)]
+
+
 def test_seq_axis_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11b"):
+    """The seq axis ran only as a raise naming ROADMAP item 11b before its port;
+    now a mesh with ``seq`` takes that many ranks (one process has too few), and
+    the CLI's ``--mesh data,model,seq`` passes it on."""
+    with pytest.raises(ValueError, match=r"mesh 1x2x1 \(data x seq x model\) != 1 ranks"):
         M.make_mesh(M.MeshConfig(data=1, model=1, seq=2), device="cpu")
     assert len(jmesh.make_mesh(jmesh.MeshConfig(data=2, model=1, seq=4)).axis_names) == 3  # JAX's 'seq' axis
-    with pytest.raises(SystemExit, match="item 11b"):
-        cli._mesh_config(cli.build_argparser().parse_args(["train", "--preset", "acdc", "--mesh", "2,1,2"]))
-    for text, want in (("2", (2, 1)), ("2,2", (2, 2)), ("4,1,1", (4, 1))):
+    for text, want in (("2", (2, 1, 1)), ("2,2", (2, 2, 1)), ("4,1,1", (4, 1, 1)), ("2,1,2", (2, 1, 2)),
+                       ("1,2,4", (1, 2, 4))):
         mcfg = cli._mesh_config(cli.build_argparser().parse_args(["train", "--preset", "acdc", "--mesh", text]))
-        assert (mcfg.data, mcfg.model) == want
+        assert (mcfg.data, mcfg.model, mcfg.seq) == want
 
 
 def test_rules_are_jax_rules_and_the_modules_plans():

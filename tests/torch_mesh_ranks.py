@@ -145,7 +145,7 @@ def _cli_child(img_size, argvs):
 
 
 def dp_config(loss_type="boundary", loss_weights="1.0", batch=8, drop_path_rate=0.1, grad_clip=0.1,
-              heads=(2, 2, 2), amp=False):
+              heads=(2, 2, 2), amp=False, attn_impl="pallas"):
     """CENet-b0 at 64 px on the ACDC preset (``tests/test_trainer.py:118-158``'s
     configuration), with drop-path and the clip on."""
     from cenet_tpu_torch.core.config import get_preset
@@ -153,7 +153,8 @@ def dp_config(loss_type="boundary", loss_weights="1.0", batch=8, drop_path_rate=
     cfg = get_preset("acdc")
     return cfg.replace(
         model=dataclasses.replace(cfg.model, input_channels=1, num_classes=4, scale_factors=(1.0, 0.5),
-                                  diffatt_num_heads=heads, encoder="pvt_v2_b0", drop_path_rate=drop_path_rate),
+                                  diffatt_num_heads=heads, encoder="pvt_v2_b0", drop_path_rate=drop_path_rate,
+                                  attn_impl=attn_impl),
         train=dataclasses.replace(cfg.train, max_epochs=1, batch_size=batch, base_lr=0.01, optimizer="sgd",
                                   scheduler="poly", loss_type=loss_type, loss_weights=loss_weights, amp=amp,
                                   grad_clip=grad_clip),
@@ -230,7 +231,7 @@ def _cpu(tree):
 
 
 def rank_train(rank, world, args):
-    """Each case of ``args["cases"]`` (config kwargs, mesh (data, model)) trained
+    """Each case of ``args["cases"]`` (config kwargs, mesh (data, model[, seq])) trained
     on its mesh: {"train": [``train``'s record] per case}; with
     ``args["unequal_ce"]`` also the error that the CE loss raises when this
     rank's batch is one row longer than the others' ({"unequal_ce": message})."""
@@ -239,8 +240,9 @@ def rank_train(rank, world, args):
 
     out = {"train": []}
     device = args.get("device", "cpu")
-    for kw, (data, model) in args["cases"]:
-        mesh = M.make_mesh(M.MeshConfig(data=data, model=model), device=device)
+    for kw, shape in args["cases"]:
+        data, model, seq = (*shape, 1)[:3]
+        mesh = M.make_mesh(M.MeshConfig(data=data, model=model, seq=seq), device=device)
         out["train"].append(train(dp_config(**kw), mesh))
     if args.get("unequal_ce"):
         M.set_attention_mesh(M.make_mesh(M.MeshConfig(data=world), device="cpu"))
@@ -326,3 +328,156 @@ def rank_tp(rank, world, args):
     result.update(modules=modules, unsharded=unsharded, round_trip=all(torch.equal(back[k], full[k]) for k in full),
                   local_kv=local["attn.kv.weight"], local_keys={k: tuple(v.shape) for k, v in local.items()})
     return result
+
+
+# -- the seq axis: ring attention -----------------------------------------------
+
+
+def ring_core_run(impl, q, k, v, co):
+    """The ``impl`` core (``nn.attention.get_attention_core``) on q, k, v and the
+    gradients of Σ out∘co: (out, (dq, dk, dv))."""
+    from cenet_tpu_torch.nn.attention import get_attention_core
+
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = get_attention_core(impl)(*xs)
+    (out * co).sum().backward()
+    return out.detach(), [x.grad for x in xs]
+
+
+def ring_diff_run(impl, q, k, v, lam, co):
+    """``router.diff_attention_interleaved`` under ``impl`` and the gradients of
+    Σ out∘co: (out, (dq, dk, dv, dλ))."""
+    from cenet_tpu_torch.ops import router
+
+    xs = [t.clone().requires_grad_() for t in (q, k, v, lam)]
+    out = router.diff_attention_interleaved(*xs, impl=impl)
+    (out * co).sum().backward()
+    return out.detach(), [x.grad for x in xs]
+
+
+def ring_module_run(spec, mesh):
+    """A module of ``spec`` (train mode, its full weights) on ``mesh``: head-sharded
+    where ``mesh.model`` divides its heads, on the rank's rows of the inputs.
+    (output rows, input-gradient rows, the full parameter gradients: summed over
+    the data group, the sharded ones gathered over the model group)."""
+    import torch.distributed as dist
+
+    from cenet_tpu_torch.core import mesh as M
+
+    mod = build_module(spec["kind"], spec["kw"]).train()
+    mod.load_state_dict(spec["state"], strict=True)
+    sharded = mod.shard_heads_(mesh) if hasattr(mod, "shard_heads_") else False
+    rows = mesh.rows(spec["inputs"][0].shape[0])
+    local = dict(spec, inputs=[x[rows] for x in spec["inputs"]], g=spec["g"][rows])
+    out, gx, gp = run_module(mod, local)
+    if mesh.data_group is not None and mesh.data > 1:
+        for g in gp.values():
+            dist.all_reduce(g, group=mesh.data_group)
+    plan = {k: r for k, r in mod.TP_PLAN.items() if k in gp} if sharded else {}
+    return out, gx, M.gather_state_dict(gp, mesh, plan), sharded
+
+
+def rank_ring(rank, world, args):
+    """Two ranks on the (1, 1, 2) mesh: the ring core's cases (``args["core"]``:
+    impl, q, k, v, co), its fallbacks (``args["fallback"]``: q, k, v, each run
+    through ``'ring'``, which must not ride the ring), the diff-attention
+    route (``args["diff"]``: impl, q, k, v, λ, co), the modules
+    (``args["modules"]``), two fp32 steps of ``args["train"]``'s configuration,
+    and last each ``cli.main`` argv of ``args["cli"]`` in turn (``cli train``,
+    then ``cli eval``, each ``--mesh 1,1,2``) as rank ``rank`` of a fresh run
+    at the ports ``args["cli_ports"]``, on the presets cut to ``args["cli_img"]``."""
+    from cenet_tpu_torch.core import mesh as M
+    from cenet_tpu_torch.nn.attention import get_attention_core
+
+    mesh = M.make_mesh(M.MeshConfig(data=1, model=1, seq=2), device="cpu")
+    M.set_attention_mesh(mesh)
+    out = {"place": (mesh.d, mesh.s, mesh.m, mesh.seq_ranks)}
+    out["core"] = [ring_core_run(*case) for case in args["core"]]
+    with torch.no_grad():
+        out["fallback"] = [get_attention_core("ring")(*case) for case in args["fallback"]]
+    out["diff"] = [ring_diff_run(*case) for case in args["diff"]]
+    out["modules"] = [ring_module_run(spec, mesh) for spec in args["modules"]]
+    out["cost"] = ring_model_cost()
+    M.set_attention_mesh(None)
+    out["train"] = train(dp_config(**args["train"]), M.make_mesh(M.MeshConfig(data=1, model=1, seq=2), device="cpu"))
+    M.shutdown_distributed()
+    out["cli"] = [ring_cli(rank, world, argv, port, args["cli_img"])
+                  for argv, port in zip(args["cli"], args["cli_ports"])]
+    return out
+
+
+def ring_model_cost():
+    """``model_cost`` of CENet-b0 at 64 px with ``attn_impl='ring'`` under the
+    registered mesh, and the collectives it called (none: ``meta`` tensors take
+    the ring core's plain fallback)."""
+    import torch.distributed as dist
+
+    from cenet_tpu_torch.core.stats import model_cost
+    from cenet_tpu_torch.models.cenet import build_model
+
+    names = ("all_reduce", "all_gather", "broadcast", "batch_isend_irecv")
+    saved, called = {n: getattr(dist, n) for n in names}, []
+    for n in names:
+        setattr(dist, n, lambda *a, _n=n, **k: called.append(_n) or saved[_n](*a, **k))
+    try:
+        cost = model_cost(build_model(dp_config(attn_impl="ring"), device="cpu", seed=0), (1, 1, 64, 64))
+    finally:
+        for n in names:
+            setattr(dist, n, saved[n])
+    return cost, called
+
+
+def ring_cli(rank, world, argv, port, img):
+    """``cli.main(argv)`` as rank ``rank`` of ``world`` (``RANK`` and the
+    rendezvous at ``port`` in the environment, as a launched-alone CLI hands
+    them to the ranks it starts), on the presets cut to ``img``: the trained
+    state (train) or the metrics (eval), and what the rank printed."""
+    import contextlib
+    import io
+
+    from cenet_tpu_torch.cli import main as cli
+    from cenet_tpu_torch.core import config
+    from cenet_tpu_torch.core import mesh as M
+
+    os.environ.update({"RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": str(world),
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    config.get_preset = slim_preset(config.get_preset, img)
+    M.DEFAULT_TIMEOUT_S = COLLECTIVE_TIMEOUT_S
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = cli.main(argv)
+    if argv[0] == "train":
+        return {"state": _cpu(result.state_dict()), "impl": result.cfg.model.attn_impl, "printed": buf.getvalue()}
+    return {"result": result, "printed": buf.getvalue()}
+
+
+def rank_ring_modules(rank, world, args):
+    """Four ranks: the modules of ``args["modules"]`` on each mesh (data, model,
+    seq) of ``args["meshes"]``, as ``ring_module_run`` runs them; then each
+    ``cli.main`` argv of ``args["cli"]`` in turn, as ``ring_cli`` runs it, at
+    the ports ``args["cli_ports"]``."""
+    from cenet_tpu_torch.core import mesh as M
+
+    out = {}
+    for data, model, seq in args["meshes"]:
+        mesh = M.make_mesh(M.MeshConfig(data=data, model=model, seq=seq), device="cpu")
+        M.set_attention_mesh(mesh)
+        out[(data, model, seq)] = [ring_module_run(spec, mesh) for spec in args["modules"]]
+        M.set_attention_mesh(None)
+    M.shutdown_distributed()
+    out["cli"] = [ring_cli(rank, world, argv, port, args["cli_img"])
+                  for argv, port in zip(args["cli"], args["cli_ports"])]
+    return out
+
+
+def rank_ring_forward(rank, world, args):
+    """The eval-mode logits of ``args["cfg"]``'s model with ``args["state"]`` on
+    ``args["x"]``, on the (1, 1, ``world``) mesh."""
+    from cenet_tpu_torch.core import mesh as M
+    from cenet_tpu_torch.models.cenet import build_model
+
+    M.set_attention_mesh(M.make_mesh(M.MeshConfig(data=1, model=1, seq=world), device="cpu"))
+    model = build_model(args["cfg"], device="cpu", seed=0)
+    model.load_state_dict(args["state"], strict=True)
+    with torch.no_grad():
+        return model.eval()(args["x"])
