@@ -2,7 +2,7 @@
 
     python -m cenet_tpu_torch.cli.main train --preset synapse --root_path .../Synapse/train_npz \\
         --list_dir .../lists_Synapse [--resume] [--throughput] [--device cpu]
-    python -m cenet_tpu_torch.cli.main eval --preset synapse [--checkpoint model.pth|snapshot_dir] \\
+    python -m cenet_tpu_torch.cli.main eval --preset synapse [--checkpoint model.pth|orbax_dir|snapshot_dir] \\
         --root_path .../Synapse/test_vol_h5 --list_dir .../lists_Synapse [--device cpu]
     python -m cenet_tpu_torch.cli.main train|eval --preset acdc --root_path .../ACDC --list_dir .../lists_ACDC
     python -m cenet_tpu_torch.cli.main train|eval --preset ham10000|ph2 --root_path .../PH2
@@ -22,9 +22,12 @@ its last line; and each dataset's eval policy after an epoch: Synapse from epoch
 T/2 every ``eval_interval`` epochs an ``epochN`` tag and a volume eval; ACDC
 a per-slice val every epoch and, when it improves, a volume test, and
 ``best`` when that improves; HAM10000/PH2 the same cascade with the skin val
-and test. ``eval`` loads a ``.pth`` or JAX-format ``.npz`` checkpoint, or a
-snapshot directory's ``best``/``final``/last epoch/latest step
-(:mod:`cenet_tpu_torch.core.checkpoint`). Synapse and ACDC run
+and test. ``eval`` loads a ``.pth`` or JAX-format ``.npz`` checkpoint, an
+Orbax tag or step of the JAX package, or a snapshot directory's
+``best``/``final``/last epoch/latest step over both packages' formats
+(:mod:`cenet_tpu_torch.core.checkpoint`); ``train --resume`` continues a run
+of either package from its latest step (or last tag), the JAX package's Orbax
+TrainState, momentum and count included, read without JAX. Synapse and ACDC run
 :class:`VolumeInferencer` and :func:`run_inference` over the test volumes
 (ACDC unnormalised, with the full metrics), optionally with per-case figures
 (``--save_figs``) and NIfTI files (``--is_savenii``, spacing (1, 1,
@@ -76,7 +79,8 @@ def build_argparser():
     p.add_argument("--list_dir", default=None)
     p.add_argument("--output_dir", default="./model_out")
     p.add_argument("--checkpoint", default=None,
-                   help=".npz (JAX package format), .pth (torch) or a snapshot directory to load")
+                   help=".npz (JAX package format), .pth (torch), an Orbax tag or step directory of the "
+                        "JAX package, or a snapshot directory to load")
     p.add_argument("--device", default="cuda", help="device the model runs on: cuda (default) or cpu")
     p.add_argument("--pretrained_pth", default=None, help="pvt_v2_bX.pth encoder weights")
     p.add_argument("--model_version", default=None, choices=[None, "cenet", "cenet_org"])
@@ -567,6 +571,7 @@ def run_eval(cfg, args, test_set=None, mesh=None) -> dict:
     import torch
 
     from cenet_tpu_torch.core.checkpoint import load_checkpoint, snapshot_checkpoint
+    from cenet_tpu_torch.core.orbax import is_orbax_checkpoint
     from cenet_tpu_torch.core.device import resolve_device
     from cenet_tpu_torch.core.mesh import broadcast_floats, shard_model_
     from cenet_tpu_torch.evaluate.predict import make_predict_fn, shard_rows
@@ -576,8 +581,8 @@ def run_eval(cfg, args, test_set=None, mesh=None) -> dict:
     snap = snapshot_path(cfg)
     ckpt = args.checkpoint or snap  # without --checkpoint: the snapshot's own checkpoints, as the JAX CLI
     if os.path.isdir(ckpt):
-        ckpt = snapshot_checkpoint(ckpt)  # best, final, the last epoch, the latest step
-    if not os.path.isfile(ckpt):
+        ckpt = snapshot_checkpoint(ckpt)  # an Orbax checkpoint; or best, final, the last epoch, the latest step
+    if not (os.path.isfile(ckpt) or is_orbax_checkpoint(ckpt)):
         raise FileNotFoundError(f"no checkpoint in {ckpt}; pass --checkpoint")
     device = resolve_device(args.device) if mesh is None else mesh.device
     lead = mesh is None or mesh.rank == 0

@@ -12,6 +12,12 @@ layout change of ``_to_jax_layout`` (``:178-205``):
 
 Every BatchNorm also gets the ``num_batches_tracked`` counter torch keeps, so
 ``load_state_dict(strict=True)`` takes the result, as it takes a reference ``.pth``.
+
+:func:`train_state_from_jax` does the same for a whole TrainState read from
+the JAX package's Orbax checkpoints (``core/orbax.py``): the weights as above,
+and the optax state of each optimizer chain the JAX package builds as the
+port's ``Optimizer.state_dict()``, each slot named and laid out as its
+parameter.
 """
 
 from __future__ import annotations
@@ -135,20 +141,123 @@ def _to_torch_layout(arr: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
     return arr
 
 
-def state_dict_from_jax(variables: Dict[str, Any], model_version: str = "cenet") -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` (CPU tensors) for JAX-package ``variables``."""
+def torch_names(variables: Dict[str, Any], model_version: str = "cenet") -> Dict[Tuple[str, Tuple[str, ...]], str]:
+    """``{(collection, path): torch key}`` of every leaf of JAX-package ``variables``."""
     siblings: Dict[str, set] = {}
     for collection in variables:
         for path, _ in _flatten(variables[collection]):
             for j in range(len(path)):
                 siblings.setdefault("/".join(path[:j]), set()).add(path[j])
+    return {(collection, path): torch_key_for(path, collection, model_version, siblings)
+            for collection in variables for path, _ in _flatten(variables[collection])}
+
+
+def _torch_tensor(leaf, path: Tuple[str, ...]) -> torch.Tensor:
+    # np.array, not np.ascontiguousarray, which makes a 0-d leaf (the Nonlocal
+    # gates' ``w``) a (1,) array
+    return torch.from_numpy(np.array(_to_torch_layout(np.asarray(leaf), path), order="C"))
+
+
+def state_dict_from_jax(variables: Dict[str, Any], model_version: str = "cenet") -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (CPU tensors) for JAX-package ``variables``."""
+    names = torch_names(variables, model_version)
     sd: Dict[str, torch.Tensor] = {}
     for collection in variables:
         for path, leaf in _flatten(variables[collection]):
-            key = torch_key_for(path, collection, model_version, siblings)
-            # np.array, not np.ascontiguousarray, which makes a 0-d leaf (the Nonlocal
-            # gates' ``w``) a (1,) array
-            sd[key] = torch.from_numpy(np.array(_to_torch_layout(np.asarray(leaf), path), order="C"))
+            key = names[(collection, path)]
+            sd[key] = _torch_tensor(leaf, path)
             if collection == "batch_stats" and key.endswith(".running_mean"):
                 sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return sd
+
+
+# optax states of the chains ``cenet_tpu/train/optim.py:55-107`` builds, as an
+# Orbax restore without a target gives them (namedtuple fields as dict keys,
+# tuples as lists, empty states as None): field names → the port's slots
+_SLOT_STATES = {frozenset({"trace"}): ("sgd", ("trace",)),  # optax.trace (SGD momentum)
+                frozenset({"count", "mu", "nu"}): ("adam", ("mu", "nu"))}  # optax.scale_by_adam
+
+
+def _optax_parts(state, slots: List, counts: List, where: str = "opt_state") -> None:
+    """Walk an optax state tree: collect its slot trees ``(kind, slot, tree)``
+    and its counts ``(where, value)``; raise on a state no chain of the JAX
+    package makes."""
+    if state is None or (isinstance(state, (list, tuple, dict)) and len(state) == 0):
+        return  # EmptyState: clip_by_global_norm, add_decayed_weights, set_to_zero
+    if isinstance(state, (list, tuple)):  # chain
+        for i, s in enumerate(state):
+            _optax_parts(s, slots, counts, f"{where}[{i}]")
+        return
+    if not isinstance(state, dict):
+        raise ValueError(f"{where}: an optax state of type {type(state).__name__} is not one the JAX package makes")
+    fields = frozenset(state)
+    if fields in _SLOT_STATES:
+        kind, names = _SLOT_STATES[fields]
+        slots.extend((kind, n, state[n]) for n in names)
+        if "count" in state:
+            counts.append((f"{where}.count", state["count"]))
+    elif fields == {"count"}:  # scale_by_learning_rate's schedule
+        counts.append((f"{where}.count", state["count"]))
+    elif fields == {"inner_states"}:  # multi_transform (freeze_subtree)
+        for label, s in state["inner_states"].items():
+            _optax_parts(s, slots, counts, f"{where}.inner_states[{label!r}]")
+    elif fields == {"inner_state"}:  # masked
+        _optax_parts(state["inner_state"], slots, counts, f"{where}.inner_state")
+    else:
+        raise ValueError(f"{where}: an optax state with fields {sorted(fields)} is not one the JAX package makes")
+
+
+def train_state_from_jax(tree: Dict[str, Any], model_version: str = "cenet",
+                         optimizer: Optional[str] = None) -> Dict[str, Any]:
+    """A JAX-package TrainState (``{"params", "batch_stats", "opt_state",
+    "step"}``, as :func:`cenet_tpu_torch.core.orbax.read_checkpoint` reads
+    it) as the port's ``Trainer.state_dict()``: ``{"state_dict": …,
+    "optimizer": {"count", "state": {name: {slot: tensor}}}}``.
+
+    The weights go through :func:`state_dict_from_jax`. The optax state of any
+    chain of ``make_optimizer`` and ``freeze_subtree``
+    (``cenet_tpu/train/optim.py:55-107``) maps onto the port's
+    ``Optimizer.state_dict()``: SGD's ``trace`` becomes the slot ``trace``;
+    Adam's and AdamW's ``mu``/``nu`` the slots of those names; the empty
+    states of the clip, the decay and ``set_to_zero`` carry nothing; a frozen
+    (masked) parameter gets no slot. Each slot takes its parameter's key and
+    layout. Adam's count, the schedule's count and ``step`` must agree: they
+    become ``count``. ``optimizer`` (``sgd``, ``adam``, ``adamw``), when
+    given, must be the one whose slots the state holds. Raises ``ValueError``
+    otherwise."""
+    for part in ("params", "opt_state", "step"):
+        if part not in tree:
+            raise ValueError(f"the train state has no {part!r} (it holds {sorted(tree)})")
+    variables = {"params": tree["params"], "batch_stats": tree.get("batch_stats") or {}}
+    sd = state_dict_from_jax(variables, model_version)
+    names = torch_names({"params": tree["params"]}, model_version)
+    slots: List = []
+    counts: List = []
+    _optax_parts(tree["opt_state"], slots, counts)
+    step = int(np.asarray(tree["step"]))
+    for where, value in counts:
+        if int(np.asarray(value)) != step:
+            raise ValueError(f"{where} is {int(np.asarray(value))} but the train state's step is {step}")
+    kinds = {kind for kind, _, _ in slots}
+    if len(kinds) > 1 or len(slots) != len({s for _, s, _ in slots}):
+        raise ValueError(f"the optax state holds more than one optimizer's slots: {[s for _, s, _ in slots]}")
+    if optimizer is not None:
+        want = "sgd" if optimizer.lower() == "sgd" else "adam"
+        if kinds and kinds != {want}:
+            raise ValueError(f"the optax state holds {kinds.pop()} slots, but the optimizer is {optimizer}")
+        if not kinds:
+            raise ValueError(f"the optax state holds no slots of {optimizer}")
+    state: Dict[str, Dict[str, torch.Tensor]] = {}
+    for _, slot, slot_tree in slots:
+        for path, leaf in _flatten(slot_tree):
+            if leaf is None:
+                continue  # a frozen parameter (optax's MaskedNode)
+            key = names.get(("params", path))
+            if key is None:
+                raise ValueError(f"optimizer slot {slot} at {'/'.join(path)} has no parameter")
+            t = _torch_tensor(leaf, path)
+            if t.shape != sd[key].shape:
+                raise ValueError(f"optimizer slot {slot} of {key}: shape {tuple(t.shape)}, "
+                                 f"parameter {tuple(sd[key].shape)}")
+            state.setdefault(key, {})[slot] = t
+    return {"state_dict": sd, "optimizer": {"count": step, "state": state}}

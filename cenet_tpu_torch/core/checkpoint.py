@@ -26,13 +26,22 @@ Weights for eval load from three sources (:func:`load_checkpoint`):
   keys ``params/…`` and ``batch_stats/…`` joined by ``/``), read by a copy of
   ``_load_npz`` and named with
   :func:`cenet_tpu_torch.convert.jax2torch.state_dict_from_jax`.
+* an Orbax checkpoint of the JAX package, a tag ``<snap>/<tag>/`` or a step
+  ``<snap>/steps/<n>/``: its ``params`` and ``batch_stats``, read without JAX
+  by :func:`cenet_tpu_torch.core.orbax.read_checkpoint` and named by
+  ``state_dict_from_jax``;
 * a snapshot directory: its ``best``, then ``final``, then the numerically
   greatest ``epochN`` tag, then its latest step (the JAX CLI's fallback,
   ``cenet_tpu/cli/main.py:497-510``).
 
-An Orbax directory (the JAX package's tags and steps) raises
-``NotImplementedError``: Orbax imports JAX, and a bridge from its trees is
-ROADMAP queue 1 item 12.
+A snapshot directory may hold both packages' files: a JAX run's Orbax tags
+and steps, and the ``.pth`` files of the port resuming it. Both count, by one
+rule: tags in the order above, steps by number, and where a tag or a step
+exists in both formats the port's ``.pth`` is taken. So :meth:`restore`
+resumes a JAX run from its latest Orbax step (momentum and count included,
+through ``train_state_from_jax``) until the port has written a later one.
+The port writes only ``.pth`` files and its rotation removes only its own;
+the JAX package's files are never changed.
 """
 
 from __future__ import annotations
@@ -46,17 +55,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from cenet_tpu_torch.convert.jax2torch import state_dict_from_jax
+from cenet_tpu_torch.convert.jax2torch import state_dict_from_jax, train_state_from_jax
 from cenet_tpu_torch.core.mesh import shard_tensor
+from cenet_tpu_torch.core.orbax import is_orbax_checkpoint, read_checkpoint
 
-ORBAX_NOT_PORTED = ("restoring an Orbax checkpoint directory (the JAX package's tags and steps) is not ported yet "
-                    "(ROADMAP queue 1 item 12); pass a .pth or .npz file or a snapshot of the port")
 TAG_PRIORITY = ("best", "final")
-_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA")
-
-
-def _is_orbax_dir(path: str) -> bool:
-    return os.path.isdir(path) and any(os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS)
 
 
 def _to_cpu(tree):
@@ -94,7 +97,7 @@ class CheckpointManager:
         torch.save(state, tmp)
         os.replace(tmp, path)  # no half-written checkpoint under the final name
         if tag is None:
-            for old in self.all_steps()[: -self.keep]:
+            for old in _pth_steps(self.steps_dir)[: -self.keep]:  # the port's own files only
                 os.remove(self.step_path(old))
         if metrics is not None:
             with open(os.path.join(self.directory, f"metrics_{tag or step}.json"), "w") as f:
@@ -106,16 +109,22 @@ class CheckpointManager:
     # -- restore ----------------------------------------------------------------
 
     def restore(self, trainer, step: Optional[int] = None, tag: Optional[str] = None):
-        """Load a step (the latest when ``step`` and ``tag`` are None) or a tag
-        into ``trainer``, weights and optimizer alike; returns the trainer."""
+        """Load a step (the latest of both formats when ``step`` and ``tag``
+        are None) or a tag into ``trainer``, weights and optimizer alike: the
+        port's ``.pth`` where it has one, else the JAX package's Orbax
+        checkpoint; returns the trainer."""
         if tag is not None:
-            path = self.tag_path(tag)
+            path = _tag_source(self.directory, tag)
+            if path is None:
+                raise FileNotFoundError(f"no tag {tag!r} in {self.directory}")
         else:
             step = step if step is not None else self.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no step checkpoints in {self.directory}")
-            path = self.step_path(step)
-        trainer.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+            path = _step_source(self.steps_dir, step)
+            if path is None:
+                raise FileNotFoundError(f"no step {step} in {self.directory}")
+        trainer.load_state_dict(load_train_state(path, trainer.cfg))
         return trainer
 
     def step_path(self, step: int) -> str:
@@ -141,40 +150,65 @@ class CheckpointManager:
         return self.latest_step() is not None or bool(self.available_tags())
 
 
-def _steps(steps_dir: str) -> List[int]:
+def _pth_steps(steps_dir: str) -> List[int]:
     if not os.path.isdir(steps_dir):
         return []
     return sorted(int(f[:-4]) for f in os.listdir(steps_dir) if f.endswith(".pth") and f[:-4].isdigit())
 
 
+def _steps(steps_dir: str) -> List[int]:
+    """Step numbers of both formats: ``<n>.pth`` files and Orbax ``<n>/`` directories."""
+    if not os.path.isdir(steps_dir):
+        return []
+    orbax = [int(f) for f in os.listdir(steps_dir)
+             if f.isdigit() and is_orbax_checkpoint(os.path.join(steps_dir, f))]
+    return sorted(set(_pth_steps(steps_dir)) | set(orbax))
+
+
+def _step_source(steps_dir: str, step: int) -> Optional[str]:
+    """The file or Orbax directory of ``step``: the ``.pth`` where both exist."""
+    pth = os.path.join(steps_dir, f"{int(step)}.pth")
+    if os.path.isfile(pth):
+        return pth
+    d = os.path.join(steps_dir, str(int(step)))
+    return d if is_orbax_checkpoint(d) else None
+
+
+def _tag_source(directory: str, tag: str) -> Optional[str]:
+    """The file or Orbax directory of ``tag``: the ``.pth`` where both exist."""
+    pth = os.path.join(directory, f"{tag}.pth")
+    if os.path.isfile(pth):
+        return pth
+    d = os.path.join(directory, tag)
+    return d if is_orbax_checkpoint(d) else None
+
+
 def _available_tags(directory: str) -> List[str]:
-    names = [f[:-4] for f in os.listdir(directory) if f.endswith(".pth")
-             and os.path.isfile(os.path.join(directory, f))]
+    names = {f[:-4] for f in os.listdir(directory) if f.endswith(".pth")
+             and os.path.isfile(os.path.join(directory, f))}
+    names |= {f for f in os.listdir(directory) if is_orbax_checkpoint(os.path.join(directory, f))}
     epochs = [t for t in names if t.startswith("epoch") and t[5:].isdigit()]
     return [t for t in TAG_PRIORITY if t in names] + sorted(epochs, key=lambda t: int(t[5:]))
 
 
 def snapshot_checkpoint(directory: str) -> str:
-    """The file that eval loads from a snapshot directory: ``best``, then
-    ``final``, then the numerically greatest ``epochN`` tag, then the latest
-    step. Creates nothing; raises ``FileNotFoundError`` when the directory
-    holds none of them, ``NotImplementedError`` when it is (or holds) an Orbax
-    checkpoint instead."""
+    """The file or Orbax directory that eval loads from ``directory``: the
+    directory itself when it is one Orbax checkpoint; else, over both
+    formats, ``best``, then ``final``, then the numerically greatest
+    ``epochN`` tag, then the latest step, the port's ``.pth`` taken where a tag
+    or step exists in both. Creates nothing; raises ``FileNotFoundError``
+    when the directory holds none of them."""
     if not os.path.isdir(directory):
         raise FileNotFoundError(f"no checkpoint in {directory}; pass --checkpoint")
-    if _is_orbax_dir(directory):
-        raise NotImplementedError(ORBAX_NOT_PORTED)
+    if is_orbax_checkpoint(directory):
+        return directory
     tags = _available_tags(directory)
     if tags:
-        return os.path.join(directory, f"{next((t for t in TAG_PRIORITY if t in tags), tags[-1])}.pth")
+        return _tag_source(directory, next((t for t in TAG_PRIORITY if t in tags), tags[-1]))
     steps_dir = os.path.join(directory, "steps")
     steps = _steps(steps_dir)
     if steps:
-        return os.path.join(steps_dir, f"{steps[-1]}.pth")
-    subdirs = [os.path.join(directory, d) for d in os.listdir(directory)]
-    subdirs += [os.path.join(steps_dir, d) for d in os.listdir(steps_dir)] if os.path.isdir(steps_dir) else []
-    if any(_is_orbax_dir(d) for d in subdirs):
-        raise NotImplementedError(ORBAX_NOT_PORTED)
+        return _step_source(steps_dir, steps[-1])
     raise FileNotFoundError(f"no checkpoint in {directory}; pass --checkpoint")
 
 
@@ -205,18 +239,29 @@ def state_dict_from_npz(path: str, model_version: str = "cenet") -> Dict[str, to
     return state_dict_from_jax({c: tree[c] for c in ("params", "batch_stats") if c in tree}, model_version)
 
 
+def load_train_state(path: str, cfg) -> Dict:
+    """The :meth:`Trainer.state_dict` held by ``path``: a ``.pth`` of the
+    port, or an Orbax checkpoint of the JAX package's whole TrainState bridged
+    by ``train_state_from_jax`` for ``cfg``'s model and optimizer."""
+    if path.endswith(".pth"):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    return train_state_from_jax(read_checkpoint(path), cfg.model.model_version, cfg.train.optimizer)
+
+
 def load_checkpoint(model: nn.Module, path: str, model_version: str = "cenet") -> nn.Module:
-    """Load the weights of ``path`` (``.pth``, ``.npz`` or a snapshot directory,
-    :func:`snapshot_checkpoint`) into ``model`` strictly, onto the model's
-    device; returns the model."""
+    """Load the weights of ``path`` (``.pth``, ``.npz``, an Orbax tag or step
+    of the JAX package, or a snapshot directory, :func:`snapshot_checkpoint`)
+    into ``model`` strictly, onto the model's device; returns the model."""
     if os.path.isdir(path):
         path = snapshot_checkpoint(path)
-    if path.endswith(".pth"):
+    if os.path.isdir(path):
+        sd = state_dict_from_jax(read_checkpoint(path, select=("params", "batch_stats")), model_version)
+    elif path.endswith(".pth"):
         sd = load_torch_state_dict(path)
     elif path.endswith(".npz"):
         sd = state_dict_from_npz(path, model_version)
     else:
-        raise ValueError(f"unknown checkpoint format: {path} (expected .pth or .npz)")
+        raise ValueError(f"unknown checkpoint format: {path} (expected .pth, .npz or an Orbax directory)")
     model.load_state_dict(sd, strict=True)
     return model
 

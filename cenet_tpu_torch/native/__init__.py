@@ -1,12 +1,19 @@
-"""The repository's C++ exact Euclidean distance transform (``native/edt.cpp``), loaded with ctypes.
+"""The port's native helpers, C++ built at first use and loaded with ctypes.
 
-The port's own loader of the source the JAX package also builds
-(``cenet_tpu/native/__init__.py``); nothing of that package is imported. At
-first use ``g++ -O3 -shared -fPIC`` compiles ``native/edt.cpp`` into
-``cenet_tpu_torch/_build/edt-<hash>/libcenet_edt.so``, keyed on a hash of the
-source and the flags, so a changed source rebuilds and later uses load. Nothing
-runs at import time. A missing compiler or a failed build raises: the metrics
-do not quietly fall back to scipy.
+* ``native/edt.cpp`` (at the repository root; the JAX package builds the same
+  source, ``cenet_tpu/native/__init__.py``): the exact Euclidean distance
+  transform of the HD95 metric, :func:`edt`.
+* ``cenet_tpu_torch/native/zstd_decode.cpp``: a Zstandard frame decoder
+  (RFC 8878) and CRC-32C, which read the JAX package's Orbax checkpoints
+  (:mod:`cenet_tpu_torch.core.orbax`), :func:`zstd_decompress` and
+  :func:`crc32c`.
+
+At first use ``g++ -O3 -shared -fPIC`` compiles a source into
+``cenet_tpu_torch/_build/<name>-<hash>/lib<...>.so``, keyed on a hash of the
+source and the flags, so a changed source rebuilds and later uses load; a lock
+makes threads build it once. Nothing runs at import time. A missing compiler or
+a failed build raises: the metrics do not quietly fall back to scipy, nor the
+checkpoint reader to another decoder.
 """
 
 from __future__ import annotations
@@ -22,49 +29,64 @@ from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parents[2] / "native" / "edt.cpp"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_f64p = ctypes.POINTER(ctypes.c_double)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+
+# name → (source, shared object, {symbol: (restype, argtypes)})
+LIBRARIES = {
+    "edt": (Path(__file__).resolve().parents[2] / "native" / "edt.cpp", "libcenet_edt.so", {
+        "cenet_edt": (ctypes.c_int, [_u8p, _f64p, ctypes.c_int, _i64p, _f64p]),
+    }),
+    "zstd": (Path(__file__).resolve().with_name("zstd_decode.cpp"), "libcenet_zstd.so", {
+        "cenet_zstd_content_size": (ctypes.c_int64, [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p,
+                                                     ctypes.c_size_t]),
+        "cenet_zstd_decompress": (ctypes.c_int64, [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                                                   ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t]),
+        "cenet_crc32c": (ctypes.c_uint32, [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint32]),
+    }),
+}
+
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
-def _build_dir() -> Path:
+def build_dir(name: str) -> Path:
+    src = LIBRARIES[name][0]
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_ROOT / f"edt-{h.hexdigest()[:16]}"
+    h.update(src.read_bytes())
+    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def load(name: str) -> ctypes.CDLL:
+    """The library ``name`` of :data:`LIBRARIES`, built on first use."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        out = _build_dir()
-        so = out / "libcenet_edt.so"
+        if name in _libs:
+            return _libs[name]
+        src, so_name, symbols = LIBRARIES[name]
+        out = build_dir(name)
+        so = out / so_name
         if not so.exists():
             cxx = shutil.which("g++")
             if cxx is None:
-                raise RuntimeError("g++ not found: the native EDT needs a C++ compiler to build")
+                raise RuntimeError(f"g++ not found: {src.name} needs a C++ compiler to build")
             out.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
             os.close(fd)
-            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SRC)], capture_output=True, text=True)
+            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(src)], capture_output=True, text=True)
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(f"g++ failed on {SRC}:\n{proc.stdout}{proc.stderr}")
+                raise RuntimeError(f"g++ failed on {src}:\n{proc.stdout}{proc.stderr}")
             os.replace(tmp, so)  # atomic: a reader never sees a partial file
         lib = ctypes.CDLL(str(so))
-        lib.cenet_edt.restype = ctypes.c_int
-        lib.cenet_edt.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_double),
-            ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_double),
-        ]
-        _lib = lib
+        for sym, (restype, argtypes) in symbols.items():
+            fn = getattr(lib, sym)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _libs[name] = lib
         return lib
 
 
@@ -75,7 +97,7 @@ def edt(mask: np.ndarray, sampling=None) -> np.ndarray:
     m = np.ascontiguousarray(np.asarray(mask).astype(np.uint8))
     if not 1 <= m.ndim <= 3:
         raise ValueError(f"edt takes 1- to 3-D masks, got {m.ndim}-D")
-    lib = _load()
+    lib = load("edt")
     out = np.empty(m.shape, np.float64)
     shape = (ctypes.c_int64 * m.ndim)(*m.shape)
     samp = None
@@ -85,8 +107,47 @@ def edt(mask: np.ndarray, sampling=None) -> np.ndarray:
         if s.shape != (m.ndim,):
             raise ValueError(f"sampling {tuple(s.shape)} does not fit a {m.ndim}-D mask")
         samp = (ctypes.c_double * m.ndim)(*s)
-    rc = lib.cenet_edt(m.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                       out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), m.ndim, shape, samp)
+    rc = lib.cenet_edt(m.ctypes.data_as(_u8p), out.ctypes.data_as(_f64p), m.ndim, shape, samp)
     if rc != 0:
         raise RuntimeError(f"cenet_edt failed with code {rc}")
     return out
+
+
+MAX_DECODED_BYTES = 1 << 34  # where a frame that does not state its size stops growing the output
+
+
+def zstd_decompress(data, size: int | None = None) -> np.ndarray:
+    """The content of the zstd frames in ``data`` (bytes-like), as a uint8
+    array. ``size``, when given, is the exact number of bytes expected. Raises
+    ``ValueError`` on a malformed, truncated or corrupt input (a content
+    checksum that disagrees included), or when the content is not ``size``
+    bytes."""
+    src = np.frombuffer(data, np.uint8)
+    lib = load("zstd")
+    err = ctypes.create_string_buffer(256)
+    if size is None:
+        stated = lib.cenet_zstd_content_size(src.ctypes.data, src.size, err, len(err))
+        if stated == -1:
+            raise ValueError(f"zstd: {err.value.decode()}")
+        cap = int(stated) if stated >= 0 else max(4 * src.size, 1 << 16)
+    else:
+        cap = int(size)
+    while True:
+        out = np.empty(max(cap, 1), np.uint8)
+        n = lib.cenet_zstd_decompress(src.ctypes.data, src.size, out.ctypes.data, cap, err, len(err))
+        if n == -2 and size is None and cap < MAX_DECODED_BYTES:
+            cap = min(2 * cap, MAX_DECODED_BYTES)  # the frames did not state their size
+            continue
+        if n == -2:
+            raise ValueError(f"zstd: content larger than {cap} bytes")
+        if n < 0:
+            raise ValueError(f"zstd: {err.value.decode()}")
+        if size is not None and n != size:
+            raise ValueError(f"zstd: content of {n} bytes where {size} were expected")
+        return out[:n]
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of ``data``, continuing from ``crc``."""
+    src = np.frombuffer(data, np.uint8)
+    return int(load("zstd").cenet_crc32c(src.ctypes.data, src.size, crc))

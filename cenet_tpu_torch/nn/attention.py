@@ -2,8 +2,9 @@
 
 Mirrors ``cenet_tpu/nn/attention.py``. ``attn_impl`` takes the JAX package's
 names (:func:`get_attention_core`): ``'xla'`` selects the naive full-map path
-(the parity path of the JAX package), ``'chunked'`` plain math of the same
-numerics, ``'pallas'`` the routes of :mod:`cenet_tpu_torch.ops.router`,
+(the parity path of the JAX package), ``'chunked'`` the JAX package's
+query-block scan of the same numerics (``router.chunked_attention_core``),
+``'pallas'`` the routes of :mod:`cenet_tpu_torch.ops.router`,
 which send large maps on the card to the CUDA kernels, and ``'ring'`` the
 ring attention of :mod:`cenet_tpu_torch.ops.ring_attention` over a mesh's
 ``seq`` axis (K2 and K4 on every hop on the card).
@@ -38,10 +39,11 @@ from cenet_tpu_torch.ops import ring_attention, rotary, router
 
 def get_attention_core(impl: str) -> Callable:
     """The attention core an ``attn_impl`` names, as
-    ``cenet_tpu/nn/attention.py::get_attention_core`` maps them: ``'xla'``, and
-    ``'chunked'`` (the JAX package's query-block scan, whose numerics are the
-    naive ones and which never reaches a kernel), give plain math; ``'pallas'``
-    the routed core. An ``'@axis'`` suffix wraps the core in
+    ``cenet_tpu/nn/attention.py::get_attention_core`` maps them: ``'xla'``
+    gives plain math, ``'chunked'`` the query-block scan
+    (``router.chunked_attention_core``: the naive numerics in blocks of 512
+    query rows, never a whole map, never a kernel), ``'pallas'`` the routed
+    core. An ``'@axis'`` suffix wraps the core in
     ``router.shard_heads``, which is the bare core unless a registered mesh's
     axis divides the heads. ``'ring'`` and ``'ring@seq'`` give the ring core
     over the mesh's seq axis (``ops/ring_attention.py::make_ring_core``, whose
@@ -52,7 +54,9 @@ def get_attention_core(impl: str) -> Callable:
         raise ValueError(f"unknown attention impl: {impl}")
     if core == "ring":
         return ring_attention.make_ring_core(axis or "seq")
-    return router.shard_heads(router.flash_attention_core if core == "pallas" else router.plain_attention, axis)
+    bare = {"xla": router.plain_attention, "chunked": router.chunked_attention_core,
+            "pallas": router.flash_attention_core}[core]
+    return router.shard_heads(bare, axis)
 
 
 def _local_core(impl: str) -> Callable:
@@ -271,9 +275,9 @@ class MultiheadDiffAttn(_HeadSharded, nn.Module):
         else:
             get_attention_core(self.attn_impl)  # raises on an unknown name
             if core == "chunked":
-                # the JAX router's split groups in plain math, never a kernel
-                attn = router.diff_attention_plain(qs[:, 0::2], k[:, 0::2], qs[:, 1::2], k[:, 1::2], v,
-                                                   lambda_full.float())
+                # the JAX router's split groups: plain math up to its limit, scanned above
+                attn = router.diff_attention_chunked(qs[:, 0::2], k[:, 0::2], qs[:, 1::2], k[:, 1::2], v,
+                                                     lambda_full.float(), head_local=self.tp is not None)
             else:
                 attn = router.diff_attention_interleaved(qs, k, v, lambda_full.float(), head_local=self.tp is not None,
                                                          impl=self.attn_impl)
@@ -291,9 +295,11 @@ class MultiheadDiffAttnCross(_HeadSharded, nn.Module):
     adds the source ``x`` back; "v2" adds nothing. With ``spatial`` set, ``x`` and
     ``q_src`` are NCHW maps tokenised by the reference's raw ``.view``. Each
     softmax group goes through the attention core with the shared v (dv = 2d):
-    plain math for ``'xla'`` and ``'chunked'``, the routed core (K2 on the card
-    above the router's limit) for ``'pallas'``, the ring for ``'ring'``. Head-sharded over a mesh's
-    model axis when it divides ``num_heads``.
+    the query-block scan for ``'xla'`` and ``'chunked'`` (JAX turns ``'xla'``
+    into ``'chunked'`` here, ``cenet_tpu/nn/attention.py:298-300``), the routed
+    core (K2 on the card above the router's limit) for ``'pallas'``, the ring
+    for ``'ring'``. Head-sharded over a mesh's model axis when it divides
+    ``num_heads``.
     """
 
     TP_PLAN = _DIFF_TP_PLAN

@@ -35,8 +35,11 @@ multiple of ``seq``) keeps this router's own route and its kernels (K1/K3,
 or K5 on split views); off the card it takes the branch, whose fallback is
 JAX's (query blocks above the limit).
 :func:`chunked_attention_core` is the JAX package's query-block scan
-(``flash_attention.py:119-145``), the ring core's fallback for large maps;
-the ``'chunked'`` name still maps to plain math (``nn/attention.py``).
+(``flash_attention.py:119-145``): the core that ``'chunked'`` names
+(``nn/attention.py::get_attention_core``), and the ring core's fallback for
+large maps. :func:`diff_attention_chunked` is the diff-attention routers'
+``'chunked'`` branch (``flash_attention.py:190-195``): plain math at most
+``_SMALL_LIMIT``, a scan of each group above it.
 """
 
 from __future__ import annotations
@@ -86,7 +89,11 @@ def chunked_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_
     ``cenet_tpu/ops/flash_attention.py::chunked_attention_core``: the tail
     padded with zero rows, each block's full fp32 softmax rows formed under
     ``torch.utils.checkpoint`` (its map recomputed in the backward, not
-    saved), so no more than a block's (B, H, q_chunk, M) map exists at once."""
+    saved), so no more than a block's (B, H, q_chunk, M) map exists at once.
+    On ``meta`` tensors, where ``core/stats.py::model_cost`` counts a model's
+    work, plain math: the same function without the padded rows."""
+    if q.device.type == "meta":
+        return plain_attention(q, k, v)
     n = q.shape[2]
     c = min(q_chunk, n)
     pad = (-n) % c
@@ -139,6 +146,19 @@ def diff_attention_plain(q1, k1, q2, k2, v, lam) -> torch.Tensor:
     A₁V − λA₂V order of operations; never a kernel."""
     out1 = plain_attention(q1, k1, v)
     out2 = plain_attention(q2, k2, v)
+    return out1 - lam.to(out1.dtype) * out2
+
+
+def diff_attention_chunked(q1, k1, q2, k2, v, lam, head_local: bool = False) -> torch.Tensor:
+    """:func:`diff_attention_core`'s function under ``'chunked'``, as the JAX
+    routers take it (``flash_attention.py:190-195``): plain math while the
+    full fp32 map is at most ``_SMALL_LIMIT``, else each group through
+    :func:`chunked_attention_core`; never a kernel."""
+    b, h, n, _ = q1.shape
+    if _rows(b, head_local) * h * n * k1.shape[2] * 4 <= _SMALL_LIMIT:
+        return diff_attention_plain(q1, k1, q2, k2, v, lam)
+    out1 = chunked_attention_core(q1, k1, v)
+    out2 = chunked_attention_core(q2, k2, v)
     return out1 - lam.to(out1.dtype) * out2
 
 

@@ -179,6 +179,16 @@ runs K10. Phases:
    and (e) one bf16 step with ``'ring'`` and no mesh, whose fallback sites
    must launch the one-process step's K1–K4; the ``kernels`` line's
    ``ring_launches`` holds the ranks' launches (the step's and the eval's);
+   6j. the Orbax bridge (run after 6h, on phase 6's slices and phase 4's
+   cases), with no JAX: the committed CENet-b2 TrainState that the JAX
+   package wrote (``tests/torch_orbax_data``, step 37) read by the port's own
+   OCDBT/zarr reader and zstd decoder (built from its source here), every
+   leaf equal to its manifest's sha256 and, bridged onto a ``Trainer`` on
+   the card, every tensor and SGD slot equal to the bit to its leaf in the
+   port's layout; ``cli eval --checkpoint`` of the step (K1 and K2 as
+   counted) and ``cli train --resume`` from a copy of it (resumed at iter
+   37, two steps launching K1–K4, finite losses); the read's seconds and
+   decoded MB/s; the ``kernels`` line's ``orbax_launches`` holds both runs';
 7. where one training step's time goes: ``torch.profiler`` over one bf16 step
    (the card's busy time, and the host's), which must show the tensor-core
    kernels of K1–K4 and no CUDA-core instance of any of them;
@@ -3917,6 +3927,176 @@ def phase_zoo(version, encoder, tag, n_slices=24):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6j: the Orbax bridge (the JAX package's TrainState read without JAX)
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURE = os.path.join("tests", "torch_orbax_data")
+ORBAX_RESUME_SLICES = 16  # two iterations an epoch at batch 8: the resumed epoch is two steps
+
+
+def phase_orbax(volume, root):
+    """6j: the Orbax bridge on the committed fixture ``tests/torch_orbax_data``
+    (``tests/torch_orbax_fixture.py``: the Synapse CENet-b2 TrainState at full
+    width, step 37, written by the JAX package's ``CheckpointManager``), with
+    no JAX here. (a) The zstd decoder built from its source, then the step read
+    by ``core/orbax.py::read_checkpoint``: every leaf's sha256 equal to the
+    manifest's (the arrays before conversion), then ``train_state_from_jax``
+    into a CENet-b2 ``Trainer`` on the card, every weight, statistic and SGD
+    slot equal to the bit to its leaf in the port's layout, count 37; the read
+    seconds and decoded MB/s on the card machine's host. (b) ``cli eval --checkpoint
+    <fixture>/steps/37`` on phase 4's two cases cut to their first 32 slices
+    (one chunk each): K1 and K2 launched as ``VOLUME_PER_CHUNK`` counts, its
+    JSON finite. (c) ``cli train --resume`` on a copy of the fixture in the
+    snapshot it names, over 16 of phase 6's slices (2 iterations an epoch, so
+    step 37 resumes in epoch 18 of 19): resumed at iter 37, two steps with
+    K1–K4 launched as ``TRAIN_PER_STEP`` counts, finite losses, step 39, the
+    port's ``.pth`` files beside the JAX package's. Returns the launch counts
+    of (b) and (c)."""
+    import io
+    import shutil
+
+    from cenet_tpu_torch import native
+    from cenet_tpu_torch.cli import main as cli
+    from cenet_tpu_torch.convert.jax2torch import _to_torch_layout, torch_names, train_state_from_jax
+    from cenet_tpu_torch.core.checkpoint import CheckpointManager
+    from cenet_tpu_torch.core.orbax import read_checkpoint
+
+    t_phase = time.perf_counter()
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), ORBAX_FIXTURE)
+    with open(os.path.join(fixture, "manifest.json")) as f:
+        manifest = json.load(f)
+    step_dir = os.path.join(fixture, "steps", str(manifest["step"]))
+    t0 = time.perf_counter()
+    native.load("zstd")
+    build_s = time.perf_counter() - t0
+    # (a) read, hash, bridge, load
+    t0 = time.perf_counter()
+    tree = read_checkpoint(step_dir)
+    read_s = time.perf_counter() - t0
+
+    def leaf(path):
+        node = tree
+        for p in path.split("/"):
+            node = node[int(p)] if isinstance(node, list) else node[p]
+        return node
+
+    decoded = sum(leaf(r["path"]).nbytes for r in manifest["leaves"])
+    bad_hashes = [r["path"] for r in manifest["leaves"]
+                  if hashlib.sha256(np.ascontiguousarray(leaf(r["path"])).tobytes()).hexdigest() != r["sha256"]
+                  or list(leaf(r["path"]).shape) != r["shape"]]
+    cfg = get_preset("synapse")
+    t0 = time.perf_counter()
+    state = train_state_from_jax(tree, cfg.model.model_version, cfg.train.optimizer)
+    convert_s = time.perf_counter() - t0
+    trainer = Trainer(cfg, 1, device=DEV)
+    t0 = time.perf_counter()
+    trainer.load_state_dict(state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    live = trainer.model.state_dict()
+    names = torch_names({"params": tree["params"], "batch_stats": tree["batch_stats"]}, cfg.model.model_version)
+    uncovered = sorted(set(live) - set(names.values()) - {k for k in live if k.endswith("num_batches_tracked")})
+    trace = tree["opt_state"][1]["trace"]  # chain(add_decayed_weights, trace, scale_by_learning_rate)
+    unequal, slots = [], 0
+    for (collection, path), key in names.items():
+        node = tree[collection]
+        for p in path:
+            node = node[p]
+        want = torch.from_numpy(np.array(_to_torch_layout(np.asarray(node), path), order="C"))
+        if not torch.equal(live[key].cpu(), want):
+            unequal.append(key)
+        if collection == "params":
+            node = trace
+            for p in path:
+                node = node[p]
+            slots += 1
+            want = torch.from_numpy(np.array(_to_torch_layout(np.asarray(node), path), order="C"))
+            if not torch.equal(trainer.optimizer.state[key]["trace"].cpu(), want):
+                unequal.append(f"{key} trace")
+    count, live_keys = trainer.step, list(live)
+    del trainer, live, state
+    torch.cuda.empty_cache()
+    check(not bad_hashes, f"orbax: {len(bad_hashes)} leaves differ from the manifest: {bad_hashes[:5]}")
+    check(len(manifest["leaves"]) == 1376 and decoded > 260e6, f"orbax: {len(manifest['leaves'])} leaves, {decoded} B")
+    check(not unequal and not uncovered and len(live_keys) == 801 and slots == 630 and count == manifest["step"],
+          f"orbax: after the load {len(unequal)} tensors differ ({unequal[:5]}), {uncovered[:5]} not checked, "
+          f"{slots} slots, count {count}")
+    # (b) cli eval of the tag
+    cases = [dict(c, image=c["image"][:CHUNK], label=c["label"][:CHUNK]) for c in volume["cases"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = cli.main(["eval", "--preset", "synapse", "--checkpoint", step_dir, "--output_dir", tmp],
+                              test_set=InMemoryVolumes(cases))
+        eval_s = time.perf_counter() - t0
+        eval_launches = dict(K.LAUNCHES)
+        printed = json.loads(out.getvalue().strip().splitlines()[-1])
+    # (c) cli train --resume from a copy of the fixture
+    losses, train_step = [], Trainer.train_step
+
+    def recording_step(self, images, labels):
+        losses.append(train_step(self, images, labels))
+        return losses[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lists = os.path.join(tmp, "lists")
+        os.makedirs(lists)
+        with open(os.path.join(root, "train.txt")) as f:
+            slices = f.read().split()[:ORBAX_RESUME_SLICES]
+        with open(os.path.join(lists, "train.txt"), "w") as f:
+            f.write("\n".join(slices) + "\n")
+        epochs = manifest["step"] // (ORBAX_RESUME_SLICES // TRAIN_B) + 1
+        argv = ["train", "--preset", "synapse", "--root_path", root, "--list_dir", lists, "--output_dir",
+                os.path.join(tmp, "out"), "--max_epochs", str(epochs), "--eval_interval", str(epochs + 1), "--resume"]
+        snap = cli.snapshot_path(cli.make_config(cli.build_argparser().parse_args(argv)))
+        shutil.copytree(fixture, snap)
+        out = io.StringIO()
+        K.reset_launches()
+        Trainer.train_step = recording_step
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                trainer = cli.main(argv, test_set=InMemoryVolumes([]))
+        finally:
+            Trainer.train_step = train_step
+        train_s = time.perf_counter() - t0
+        train_launches = dict(K.LAUNCHES)
+        resumed_step = trainer.step
+        del trainer
+        torch.cuda.empty_cache()
+        mgr = CheckpointManager(snap)
+        latest, tags = mgr.latest_step(), mgr.available_tags()
+        jax_step_kept = os.path.isdir(os.path.join(snap, "steps", str(manifest["step"]), "default"))
+        log = [line.split("] ", 1)[-1] for line in out.getvalue().splitlines() if "resumed from" in line]
+    loss_values = torch.stack(losses).float().cpu().tolist() if losses else []
+    chunks = len(cases)
+    emit({"phase": "orbax", "fixture": ORBAX_FIXTURE, "leaves": len(manifest["leaves"]),
+          "decoded_mb": decoded / 1e6, "zstd_build_s": build_s, "read_s": read_s,
+          "decoded_mb_per_s": decoded / 1e6 / read_s, "convert_s": convert_s, "load_to_card_s": load_s,
+          "hash_mismatches": bad_hashes[:5], "tensors_checked": len(names), "tensors_of_the_model": len(live_keys),
+          "uncovered": uncovered[:5], "slots_checked": slots,
+          "unequal_after_load": unequal[:5], "count": count,
+          "cli_eval": {"printed": printed, "result": result, "chunks": chunks, "seconds": eval_s,
+                       "launches": eval_launches},
+          "cli_train_resume": {"log": log, "step": resumed_step, "losses": loss_values, "seconds": train_s,
+                               "launches": train_launches, "latest_step": latest, "tags": tags,
+                               "jax_step_kept": jax_step_kept},
+          "phase_s": time.perf_counter() - t_phase})
+    check(printed == result and all(np.isfinite(list(result.values()))) and 0.0 <= result["mean_dice"] <= 1.0,
+          f"orbax: cli eval printed {printed}, returned {result}")
+    check_launches(eval_launches, VOLUME_PER_CHUNK["interleaved"], chunks, "orbax: cli eval of the step")
+    resumed = f"resumed from step {manifest['step']} at iter {manifest['step']} (epoch {epochs - 1}, momentum restored)"
+    check(log == [resumed] and resumed_step == manifest["step"] + 2, f"orbax: resume log {log}, step {resumed_step}")
+    check(len(loss_values) == 2 and all(np.isfinite(loss_values)), f"orbax: resumed losses {loss_values}")
+    check_launches(train_launches, TRAIN_PER_STEP["interleaved"], 2, "orbax: cli train --resume")
+    check(latest == manifest["step"] + 2 and jax_step_kept and tags[0] == "final",
+          f"orbax: after the resume the latest step is {latest}, tags {tags}, the JAX step kept: {jax_step_kept}")
+    return {"orbax-eval": eval_launches, "orbax-train": train_launches}
+
+
 def wide_ptxas():
     """``ptxas``'s registers a thread and spills (bytes) of each instance of the
     wide K2/K4's wgmma kernels, by kernel and output columns a warpgroup: the
@@ -3974,6 +4154,7 @@ def main():
         launches["cli-train"] = phase_cli_train(train_root, train_img_per_s)
         launches["remat"] = phase_remat(train_root, train_wait_ms)
         mesh_launches = phase_mesh(train_root)
+        launches.update(phase_orbax(volume, train_root))
     ring_launches = phase_ring(volume)
     del volume
     launches["acdc"] = phase_acdc()
@@ -3996,6 +4177,7 @@ def main():
             "resnet50_launches": launches["resnet50"].get(name, 0),
             "mesh_launches": {mesh: mesh_launches.get(name, {}).get(mesh, [0, 0]) for mesh in MESH_CASES},
             "ring_launches": {tag: ring_launches.get(name, {}).get(tag, [0, 0]) for tag in ("step", "eval")},
+            "orbax_launches": {tag: launches[f"orbax-{tag}"].get(name, 0) for tag in ("eval", "train")},
             "max_abs_err": err,
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": bound_by(total("ops_ms"), total("bytes_ms")),

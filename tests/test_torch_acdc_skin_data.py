@@ -42,6 +42,10 @@ from cenet_tpu_torch.data.tta import AddNoise
 from cenet_tpu_torch.evaluate import skin as teskin
 from cenet_tpu_torch.evaluate import visualize as tvis
 
+# One intra-op thread, as tests/torch_parity.py sets it for the files that import it:
+# in the parallel test run torch's default pool spins against the other workers.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = range(12)  # enough draws that every branch of each pipeline runs
 

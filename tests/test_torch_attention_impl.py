@@ -1,7 +1,8 @@
 """The port's ``attn_impl`` names and unported options, on the CPU.
 
 ``get_attention_core`` maps the JAX package's names as
-``cenet_tpu/nn/attention.py::get_attention_core`` does ('ring' included),
+``cenet_tpu/nn/attention.py::get_attention_core`` does ('chunked' to the
+query-block scan, 'ring' included),
 and raises on a name it does not know; ``MultiheadDiffAttn`` takes its naive path for
 every impl whose core is ``'xla'``; ``build_model`` honours ``train.remat``
 for CENet's PVT encoder, and CENetOrg ignores it.
@@ -21,9 +22,14 @@ from cenet_tpu_torch.nn import attention as tatt
 from cenet_tpu_torch.ops import router
 from cenet_tpu_torch.train.trainer import Trainer
 
+# One intra-op thread, as tests/torch_parity.py sets it for the files that import it:
+# in the parallel test run torch's default pool spins against the other workers.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("impl,core", [
-    ("xla", router.plain_attention), ("chunked", router.plain_attention), ("pallas", router.flash_attention_core),
+    ("xla", router.plain_attention), ("chunked", router.chunked_attention_core),
+    ("pallas", router.flash_attention_core),
 ])
 def test_attention_core_names_map_as_in_jax(impl, core):
     assert tatt.get_attention_core(impl) is core
@@ -87,8 +93,10 @@ def test_xla_at_axis_takes_the_naive_diff_path(monkeypatch):
 
 
 def test_chunked_diff_attention_is_plain_math(monkeypatch):
-    """'chunked' computes the two groups in plain math (the JAX chunked scan's
-    numerics) and never reaches the routed core, which takes kernels on the card."""
+    """'chunked' computes the two groups in plain math below the size limit
+    (the JAX router's rule; above it each group is scanned, held in
+    ``tests/test_torch_chunked.py``) and never reaches the routed core, which
+    takes kernels on the card."""
     x = torch.randn(2, 16, 32, generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
         want = _diff_attn("xla")(x)

@@ -25,6 +25,10 @@ from cenet_tpu.ops.pallas_attention import (_diff_bwd_pair_impl, _diff_fwd_pair_
 from cenet_tpu_torch.ops import attention_kernels as K
 from cenet_tpu_torch.ops import router
 
+# One intra-op thread, as tests/torch_parity.py sets it for the files that import it:
+# in the parallel test run torch's default pool spins against the other workers.
+torch.set_num_threads(1)
+
 # (b, h, n, m, d, dv): tests/test_ops.py's ragged shapes and the slice's d=20, dv=40
 DIFF_SHAPES = [(1, 2, 64, 64, 4, 8), (1, 1, 100, 49, 8, 16), (2, 2, 196, 196, 4, 8), (1, 1, 100, 100, 20, 40)]
 ATTN_SHAPES = [(1, 2, 64, 64, 16, 16), (1, 1, 100, 49, 8, 24), (2, 2, 196, 196, 20, 40), (1, 1, 70, 70, 64, 64)]

@@ -20,7 +20,8 @@ directory:
 * the modes and options not ported yet exit naming their ROADMAP item;
   ``train --model_stats`` logs ``model_cost``'s line;
   a directory without a checkpoint raises ``FileNotFoundError``, an Orbax tag
-  directory (or a snapshot that holds one) ``NotImplementedError``; without
+  directory without ``params`` (or a snapshot that holds one) ``ValueError``
+  naming them; without
   ``--device`` the CLI needs the card.
 
 The port's native EDT is held to ``scipy.ndimage.distance_transform_edt`` at
@@ -259,9 +260,9 @@ def test_checkpoint_directories_and_devices(data, slim, tmp_path, monkeypatch):
     tagger.save(str(tmp_path / "final"), {"step": np.zeros((), np.int32)}, force=True)
     tagger.wait_until_finished()
     for path in (tmp_path / "final", tmp_path):  # the tag, and a snapshot that holds it
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        with pytest.raises(ValueError, match=r"no \['params'"):  # a tag without weights names them
             cli.main(_argv(data, path))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        with pytest.raises(ValueError, match=r"no \['params'"):
             load_checkpoint(data["model"], str(path))
     argv = _argv(data, data["root"] / "w.pth")
     argv.remove("--checkpoint")
@@ -286,9 +287,10 @@ def test_native_edt_matches_scipy(rng):
 def test_native_edt_build_failure_raises(tmp_path, monkeypatch):
     bad = tmp_path / "edt.cpp"
     bad.write_text("this is not C++\n")
-    monkeypatch.setattr(native, "SRC", bad)
+    _, so_name, symbols = native.LIBRARIES["edt"]
+    monkeypatch.setitem(native.LIBRARIES, "edt", (bad, so_name, symbols))
     monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "_build")
-    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_libs", {})
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.edt(np.ones((4, 4), bool))
 

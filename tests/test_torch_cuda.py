@@ -43,6 +43,10 @@ CENet-b0 (its DSEB and Nonlocal sites launch K1 and K2), a uint16 upload
 decodes to the integer volume exactly on both paths, and the pinned buffers
 are made in the first case only.
 
+The Orbax bridge where the card is: the zstd decoder built from its source
+and the committed CENet-b2 TrainState (``tests/torch_orbax_data``) read,
+hashed against its manifest and loaded onto a trainer on the card.
+
 Marked ``cuda``; each test skips without a CUDA device. This file imports no
 JAX, so it runs where only PyTorch is installed:
 
@@ -68,6 +72,10 @@ from cenet_tpu_torch.ops import depthwise as DW
 from cenet_tpu_torch.ops import rms_norm as RN
 from cenet_tpu_torch.ops import rotary as RO
 from cenet_tpu_torch.ops import smallc_conv as SC
+
+# One intra-op thread, as tests/torch_parity.py sets it for the files that import it:
+# in the parallel test run torch's default pool spins against the other workers.
+torch.set_num_threads(1)
 
 # (b, h, n, m, d) and (b, h, n, m, d, dv): ragged N/M and the slice's head dims
 DIFF_SHAPES = [(2, 2, 100, 100, 8), (1, 2, 196, 196, 20), (1, 1, 64, 100, 16), (1, 1, 196, 49, 64),
@@ -1234,3 +1242,43 @@ def test_cuda_two_ranks_share_the_card_over_gloo(cuda):
             errs = R.relative_errors(run["state"], want["state"], want["init"])
             assert max(errs["update"][0], errs["slot"][0]) < R.WHOLE_RTOL, errs
             assert max(errs["update"][1], errs["slot"][1]) < R.TENSOR_RTOL, errs
+
+
+@pytest.mark.cuda
+def test_cuda_machine_builds_the_zstd_decoder_and_bridges_the_fixture(cuda):
+    """The Orbax bridge where the card is: the zstd decoder built from its
+    source (no libzstd, no ``zstandard`` used), CRC-32C's test vector, the
+    committed fixture's step (``tests/torch_orbax_data``, the Synapse CENet-b2
+    TrainState) read with every leaf equal to its manifest's sha256, and
+    bridged onto a CENet-b2 ``Trainer`` on the card, every tensor and SGD
+    slot equal to the bridged state's, at count 37."""
+    import hashlib
+
+    from cenet_tpu_torch import native
+    from cenet_tpu_torch.core.checkpoint import load_train_state
+    from cenet_tpu_torch.core.config import get_preset
+    from cenet_tpu_torch.core.orbax import read_checkpoint
+    from cenet_tpu_torch.train.trainer import Trainer
+
+    assert native.crc32c(b"123456789") == 0xE3069283
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_orbax_data")
+    with open(os.path.join(fixture, "manifest.json")) as f:
+        manifest = json.load(f)
+    step = os.path.join(fixture, "steps", str(manifest["step"]))
+    tree = read_checkpoint(step)
+    for r in manifest["leaves"]:
+        node = tree
+        for p in r["path"].split("/"):
+            node = node[int(p)] if isinstance(node, list) else node[p]
+        assert hashlib.sha256(np.ascontiguousarray(node).tobytes()).hexdigest() == r["sha256"], r["path"]
+    cfg = get_preset("synapse")
+    state = load_train_state(step, cfg)
+    trainer = Trainer(cfg, 1, device=cuda)
+    trainer.load_state_dict(state)
+    assert trainer.step == manifest["step"] == 37
+    live = trainer.model.state_dict()
+    assert live.keys() == state["state_dict"].keys() and len(live) == 801
+    assert all(v.is_cuda and torch.equal(v.cpu(), state["state_dict"][k]) for k, v in live.items())
+    slots = state["optimizer"]["state"]
+    assert len(slots) == 630 and all(torch.equal(trainer.optimizer.state[n]["trace"].cpu(), s["trace"])
+                                     for n, s in slots.items())

@@ -20,6 +20,10 @@ from cenet_tpu_torch.data import augment as taugment
 from cenet_tpu_torch.data.loader import Loader, device_put_fn, seeded_epoch_order
 from cenet_tpu_torch.data.synapse import SynapseDataset
 
+# One intra-op thread, as tests/torch_parity.py sets it for the files that import it:
+# in the parallel test run torch's default pool spins against the other workers.
+torch.set_num_threads(1)
+
 N_SLICES = 6
 
 

@@ -16,6 +16,10 @@ from cenet_tpu_torch.ops import attention_kernels as K
 from cenet_tpu_torch.ops import build
 from cenet_tpu_torch.train.trainer import Trainer
 
+# One intra-op thread, as tests/torch_parity.py sets it for the files that import it:
+# in the parallel test run torch's default pool spins against the other workers.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
@@ -24,7 +28,8 @@ import cenet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(cenet_tpu_torch.__path__, "cenet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "cenet_tpu"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "cenet_tpu", "orbax",
+                                                            "tensorstore", "zstandard"))
 print(len(names), bad)
 """
 
@@ -40,6 +45,22 @@ def test_port_imports_no_jax():
 def test_op_modules_import_no_jax(module):
     code = (f"import sys; import cenet_tpu_torch.ops.{module}; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cenet_tpu', 'tools')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "cenet_tpu", "orbax", "tensorstore", "zstandard")
+
+
+def test_cli_and_chip_smoke_import_no_jax_orbax_or_zstd_package():
+    """The CLI, the checkpoint bridge and ``chip_smoke.py`` (imported with the
+    card faked present, since it exits without one) load none of JAX, the JAX
+    package, Orbax, TensorStore or the ``zstandard`` package: the Orbax
+    reader and its zstd decoder are the port's own."""
+    code = ("import sys, torch; torch.cuda.is_available = lambda: True; import chip_smoke, "
+            "cenet_tpu_torch.cli.main, cenet_tpu_torch.core.checkpoint, cenet_tpu_torch.core.orbax; "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
                          check=True)
     assert out.stdout.strip() == "[]"

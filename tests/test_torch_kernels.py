@@ -15,6 +15,10 @@ from cenet_tpu.ops.pallas_attention import _diff_fwd_pair_impl, _pallas_attentio
 from cenet_tpu_torch.ops import attention_kernels as K
 from cenet_tpu_torch.ops import router
 
+# One intra-op thread, as tests/torch_parity.py sets it for the files that import it:
+# in the parallel test run torch's default pool spins against the other workers.
+torch.set_num_threads(1)
+
 # (b, h, n, m, d): ragged N/M (100, 196) and the slice's head dims
 DIFF_SHAPES = [(2, 2, 100, 100, 8), (1, 2, 196, 196, 20), (1, 1, 64, 100, 16), (1, 1, 196, 49, 64)]
 ATTN_SHAPES = [(2, 1, 100, 100, 64, 64), (1, 2, 196, 196, 16, 24), (1, 1, 100, 196, 8, 8), (1, 1, 64, 64, 20, 40)]

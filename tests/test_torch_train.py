@@ -25,6 +25,10 @@ from cenet_tpu_torch.nn.layers import DropPath, Dropout, set_generator
 from cenet_tpu_torch.train import losses as tlosses
 from cenet_tpu_torch.train import optim as toptim
 
+# One intra-op thread, as tests/torch_parity.py sets it for the files that import it:
+# in the parallel test run torch's default pool spins against the other workers.
+torch.set_num_threads(1)
+
 K_CLASSES = 9
 
 

@@ -25,6 +25,10 @@ import torch
 from cenet_tpu.ops.pallas_attention import _pallas_attention_bwd_impl, _pallas_attention_fwd_impl
 from cenet_tpu_torch.ops import attention_kernels as K
 
+# One intra-op thread, as tests/torch_parity.py sets it for the files that import it:
+# in the parallel test run torch's default pool spins against the other workers.
+torch.set_num_threads(1)
+
 # (b, h, n, m, d, dv)
 WIDE_SHAPES = [(1, 1, 64, 64, 256, 256), (1, 1, 40, 33, 200, 300), (1, 2, 17, 65, 512, 136),
                (1, 1, 70, 9, 130, 16)]
