@@ -28,9 +28,14 @@
 //   fp32  CUDA cores in fp32 FMA (attention_bwd_common.cuh, GROUPS = 2). The
 //         tensor cores take fp32 only as TF32, which would break the fp32
 //         kernel's 1e-4 agreement with its twin.
+//
+// Head dims past 128 (d <= 1024, dv <= 2048) run the wide designs of
+// diff_attention_wide.cuh in both dtypes: a delta kernel, then a dq and a
+// dk/dv kernel over column slices of the gradients, still without atomics.
 
 #include "attention_bwd_common.cuh"
 #include "diff_attention_tc.cuh"
+#include "diff_attention_wide.cuh"
 
 extern "C" int cenet_diff_attention_bwd(
     int is_bf16, const void* q, const void* k, const void* v, const void* dout, const float* lam,
@@ -56,6 +61,7 @@ extern "C" int cenet_diff_attention_bwd(
                             {lse1, lse2}, {delta1, delta2}, {out(dq, 0, N), out(dq, 1, N)},
                             {out(dk, 0, M), out(dk, 1, M)}, static_cast<tc::bf16*>(dv), H, N, M, D, DV,
                             tc::out_vec(dv, DV)};
+    if (D > tc::MAX_DIM || DV > tc::MAX_DIM) return cenet::dwide::bwd_tc_launch(a, B, s);
     return tc::diff_bwd_launch(a, B, s);
   }
   const cenet::Strides sq{sqb, 2 * sqh, sqn}, sk{skb, 2 * skh, skn};
@@ -65,5 +71,6 @@ extern "C" int cenet_diff_attention_bwd(
                      {dq, const_cast<void*>(cenet::offset<float>(dq, (long long)N * D))},
                      {dk, const_cast<void*>(cenet::offset<float>(dk, (long long)M * D))}, dv, B, H, N, M, D, DV,
                      {sq, sq}, {sk, sk}, {svb, svh, svn}, {sob, soh, son}, {sdq, sdq}, {sdk, sdk}};
+  if (D > cenet::MAX_D || DV > cenet::MAX_DV) return cenet::dwide::bwd_f32_launch(p, s);
   return cenet::bwd_launch<float, 2, false>(p, s);
 }

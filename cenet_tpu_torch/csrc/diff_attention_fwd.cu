@@ -21,9 +21,14 @@
 //   fp32  CUDA cores in fp32 FMA (attention_fwd_common.cuh, GROUPS = 2). The
 //         tensor cores take fp32 only as TF32, whose 10-bit mantissa would
 //         break the fp32 kernel's 1e-4 agreement with its twin.
+//
+// Head dims past 128 (d <= 1024, dv <= 2048: the DSEBs of a ResNet CENet, a
+// PVT CENet's DSEB3 at large batches) run the wide designs of
+// diff_attention_wide.cuh in both dtypes; at d, dv <= 128 the designs above.
 
 #include "attention_fwd_common.cuh"
 #include "diff_attention_tc.cuh"
+#include "diff_attention_wide.cuh"
 
 extern "C" int cenet_diff_attention_fwd(
     int is_bf16, const void* q, const void* k, const void* v, const float* lam,
@@ -41,10 +46,12 @@ extern "C" int cenet_diff_attention_fwd(
                             {group(k, 0, skb, skh, skn), group(k, 1, skb, skh, skn)},
                             tc::operand(v, svb, svh, svn, B, H), lam, static_cast<tc::bf16*>(o), {lse1, lse2},
                             H, N, M, D, DV, tc::out_vec(o, DV)};
+    if (D > tc::MAX_DIM || DV > tc::MAX_DIM) return cenet::dwide::fwd_tc_launch(a, B, s);
     return tc::diff_fwd_launch(a, B, s);
   }
   cenet::Params p{{q, cenet::offset<float>(q, sqh)}, {k, cenet::offset<float>(k, skh)}, v, lam, o, lse1, lse2,
                   B, H, N, M, D, DV, {{sqb, 2 * sqh, sqn}, {sqb, 2 * sqh, sqn}},
                   {{skb, 2 * skh, skn}, {skb, 2 * skh, skn}}, {svb, svh, svn}};
+  if (D > cenet::MAX_D || DV > cenet::MAX_DV) return cenet::dwide::fwd_f32_launch(p, s);
   return cenet::launch<2>(p, s);
 }

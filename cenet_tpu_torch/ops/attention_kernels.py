@@ -30,13 +30,17 @@ K1, K3, K5, K6 and K7, where K5 is K1's kernel on the split head views, K7 K3's
 kernels with its own dv rounding and K6 K3's dq kernel that also adds each key
 tile's dk and dv partials), fp32 on CUDA cores in fp32 FMA
 (``csrc/attention_{fwd,bwd}_common.cuh``), because the tensor cores take fp32
-only as TF32. Both keep the Pallas bodies' rounding points. K2 and K4 take head dims up
-to 512 (the other kernels 128): past 128 they launch the wide designs of
-``csrc/attention_wide.cuh``: bf16 on Hopper's ``wgmma`` (PTX in
-``csrc/wgmma_ptx.cuh``; TMA loads where the operands are 16-byte aligned,
-``cp.async`` otherwise), each logit formed once a pass for all output columns
-of its rows, fp32 on CUDA cores (d and dv in 128-column chunks, one
-128-column slice of each output a block).
+only as TF32. Both keep the Pallas bodies' rounding points. Each kernel takes
+the head dims of ``HEAD_DIMS``: K1 and K3 d ≤ 1024, dv ≤ 2048, K2 and K4
+d, dv ≤ 512, K5–K8 d, dv ≤ 128; past them the wrapper raises. Past 128, K2
+and K4 launch the wide designs of ``csrc/attention_wide.cuh``: bf16 on
+Hopper's ``wgmma`` (PTX in ``csrc/wgmma_ptx.cuh``; TMA loads where the
+operands are 16-byte aligned, ``cp.async`` otherwise), each logit formed once
+a pass for all output columns of its rows, fp32 on CUDA cores (d and dv in
+128-column chunks, one 128-column slice of each output a block); K1 and K3
+those of ``csrc/diff_attention_wide.cuh``: one 128-column slice of one output
+a block, the logits formed again over all of d for each slice, bf16 on
+``mma.sync``, fp32 on CUDA cores, still without atomics.
 
 :class:`DiffAttentionInterleavedFn`, :class:`DiffAttentionFn` and
 :class:`AttentionFn` pair each routed forward kernel with its backward, as the
@@ -67,8 +71,15 @@ import torch
 from cenet_tpu_torch.ops import binding
 from cenet_tpu_torch.ops.binding import LAUNCHES, reset_launches  # noqa: F401  (public names of this module)
 
-_MAX_D, _MAX_DV = 128, 128  # csrc/attention_fwd_common.cuh: MAX_D, MAX_DV
-_MAX_WIDE = 512  # K2 and K4 (attention_fwd, attention_bwd): csrc/attention_wide.cuh, wide::MAX_DIM
+# The largest (d, dv) each kernel takes, by wrapper: K1 and K3 csrc/diff_attention_wide.cuh
+# (dwide::MAX_D, MAX_DV), K2 and K4 csrc/attention_wide.cuh (wide::MAX_DIM), the others
+# csrc/attention_fwd_common.cuh (MAX_D, MAX_DV) and csrc/attention_tc.cuh (tc::MAX_DIM)
+HEAD_DIMS = {
+    "diff_attention_interleaved_fwd": (1024, 2048), "diff_attention_interleaved_bwd": (1024, 2048),  # K1, K3
+    "attention_fwd": (512, 512), "attention_bwd": (512, 512),  # K2, K4
+    "diff_attention_fwd": (128, 128), "diff_attention_bwd": (128, 128),  # K5, K6
+    "diff_attention_bwd_split": (128, 128), "attention_bwd_fused": (128, 128),  # K7, K8
+}
 
 _P, _I, _L = binding.P, binding.I, binding.L
 # C signatures (csrc/*.cu): is_bf16, pointers, B, H, N, M, D, DV, 3 strides per
@@ -211,9 +222,9 @@ def _check_shapes(name: str, expected: dict) -> None:
         raise ValueError(f"{name}: shapes {got} do not fit")
 
 
-def _check_head_dims(name: str, d: int, dv: int, wide: bool = False) -> None:
-    """K2 and K4 (``wide``) take d, dv ≤ 512, the other attention kernels ≤ 128."""
-    max_d, max_dv = (_MAX_WIDE, _MAX_WIDE) if wide else (_MAX_D, _MAX_DV)
+def _check_head_dims(name: str, d: int, dv: int) -> None:
+    """The wrapper ``name``'s kernel takes d and dv up to ``HEAD_DIMS[name]``."""
+    max_d, max_dv = HEAD_DIMS[name]
     if d > max_d or dv > max_dv:
         raise ValueError(f"{name}: head dims d={d}, dv={dv} exceed the kernel's {max_d}, {max_dv} "
                          "(wider heads are ROADMAP queue 1 item 13)")
@@ -249,7 +260,9 @@ def diff_attention_interleaved_fwd(q, k, v, lam):
     """softmax(q1·k1ᵀ)·V − λ·softmax(q2·k2ᵀ)·V on the interleaved layout.
 
     q, k ``(B, 2h, N|M, d)``; v ``(B, h, M, 2d)``; lam a 0-d fp32 tensor on the
-    same device (read by the kernel from device memory: no host sync).
+    same device (read by the kernel from device memory: no host sync). Takes
+    d ≤ 1024 and dv ≤ 2048 (past 128 the wide designs of
+    ``csrc/diff_attention_wide.cuh``).
     Returns ``(o (B, h, N, 2d), lse1 (B, h, N), lse2 (B, h, N))``.
     """
     if q.device.type == "cpu":
@@ -319,7 +332,7 @@ def attention_fwd(q, k, v):
     b, hh, n, d = q.shape
     m, dv = k.shape[2], v.shape[3]
     _check_shapes(name, {"q": (q, q.shape), "k": (k, (b, hh, m, d)), "v": (v, (b, hh, m, dv))})
-    _check_head_dims(name, d, dv, wide=True)
+    _check_head_dims(name, d, dv)
     o = torch.empty((b, hh, n, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hh, n), dtype=torch.float32, device=q.device)
     rc = _kernel("attention_fwd", "cenet_attention_fwd")(
@@ -432,7 +445,7 @@ def _attention_bwd(name, source, symbol, fused, q, k, v, o, lse, do):
     m, dv = k.shape[2], v.shape[3]
     _check_shapes(name, {"q": (q, q.shape), "k": (k, (b, hh, m, d)), "v": (v, (b, hh, m, dv)),
                          "o": (o, (b, hh, n, dv)), "do": (do, (b, hh, n, dv))})
-    _check_head_dims(name, d, dv, wide=not fused)
+    _check_head_dims(name, d, dv)
     (lse,) = _row_stats(name, (b, hh, n), lse)
     delta = (do.float() * o.float()).sum(-1).contiguous()
     dq = (torch.zeros((b, hh, n, d), dtype=torch.float32, device=q.device) if fused

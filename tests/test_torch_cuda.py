@@ -14,7 +14,10 @@ bit-identity checks of K1, K3 and K7 (δ and dλ included), K4, K6's dq, δ and
 dλ, and K8's dk and dv. K2 and K4 also at head dims past 128 (their wide
 designs, d and dv up to 512: the ResNet-50 Nonlocal sites and ragged chunks),
 with their repeat-run bit-identity, and the router sending ResNet-50's dec1
-Nonlocal to K2 and K4. Limits in max-abs
+Nonlocal to K2 and K4. K1 and K3 past head dim 128 (their wide designs, d up
+to 1024 and dv up to 2048: every DSEB width the presets reach and ragged
+ones, in both dtypes), with their repeat-run bit-identity and their raises
+past ``HEAD_DIMS``. Limits in max-abs
 and in norm: fp32 1e-4 of max |grad| and 1e-5 in norm (only the order of
 summation differs); bf16 two bf16 half-ulps of max |grad| (2·2^-8 in norm) plus
 the twin's own cost of rounding ds and p (or w) to bf16, measured the same way.
@@ -404,6 +407,90 @@ def test_cuda_wide_attention_repeats_and_limits(cuda):
         K.attention_fwd(mid, mid, big)
     with pytest.raises(ValueError, match="item 13"):
         K.attention_bwd(mid, mid, big, big, torch.zeros(1, 1, 8, device=cuda), big)
+
+
+# K1 and K3 past 128 (csrc/diff_attention_wide.cuh): (b, h, n, d) with dv = 2d,
+# the views the DSEB projections hand over, at every (d, dv) that a DSEB site
+# of the presets and encoders reaches (tests/test_torch_site_widths.py): ResNet
+# DSEB1–3 at heads 2 and 4 (d 128, 256, 512) and at one head (256, 512, 1024),
+# PVT DSEB3 (80, 160, 320); then (b, h, n, m, d, dv) contiguous at ragged
+# widths against the 64-column chunks and 128-column slices, a narrow d beside
+# a wide dv and the reverse, and the largest d and dv
+WIDE_DIFF_SITES = [(1, 1, 3136, 128), (1, 1, 784, 128), (1, 1, 784, 256), (1, 2, 196, 512), (1, 1, 3136, 256),
+                   (1, 1, 784, 512), (1, 1, 196, 1024), (2, 2, 196, 80), (1, 2, 196, 160), (1, 1, 196, 320)]
+WIDE_DIFF_SHAPES = [(1, 1, 65, 63, 136, 272), (2, 1, 100, 129, 24, 260), (1, 1, 1, 65, 200, 16),
+                    (1, 2, 129, 65, 1000, 2040), (1, 1, 70, 200, 1024, 2048)]
+
+
+def _assert_diff_pair(q, k, v, do, lam, dtype, where):
+    """K1 and K3 on (q, k, v, dO) against their twins on contiguous fp32 copies:
+    o within ``_o_limit``, the LSEs within 1e-4, the gradients within
+    ``_grad_limits``, dλ within 1e-4 of max(1, |dλ|)."""
+    f = [t.float().contiguous() for t in (q, k, v, do)]
+    got = K.diff_attention_interleaved_fwd(q, k, v, lam)
+    want = K.diff_attention_interleaved_fwd_plain(f[0], f[1], f[2], lam)
+    want_w = K.diff_attention_interleaved_fwd_plain(f[0], f[1], v.contiguous(), lam)[0]
+    grads = K.diff_attention_interleaved_bwd(q, k, v, lam, want[1], want[2], do)
+    want_b = K.diff_attention_interleaved_bwd_plain(f[0], f[1], f[2], lam, want[1], want[2], f[3])
+    want_r = (K.diff_attention_interleaved_bwd_plain(f[0], k, f[2], lam, want[1], want[2], do)[0],
+              K.diff_attention_interleaved_bwd_plain(q, f[1], f[2], lam, want[1], want[2], do)[1],
+              K.diff_attention_interleaved_bwd_plain(f[0], f[1], f[2], lam, want[1], want[2], do)[2])
+    torch.cuda.synchronize()
+    assert (got[0].float() - want[0]).abs().max() <= _o_limit(dtype, want[0], want_w), where
+    assert max((a - w).abs().max() for a, w in zip(got[1:], want[1:])) <= 1e-4, where
+    _assert_grads(grads[:3], want_b[:3], want_r, dtype, where)
+    assert abs(float(grads[3]) - float(want_b[3])) <= 1e-4 * max(1.0, abs(float(want_b[3]))), where
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wide_diff_kernels_match_twins(cuda, dtype):
+    """K1 and K3 past head dim 128 against their twins with the limits of the
+    narrow kernels, at every DSEB width the presets reach and at ragged ones."""
+    g = torch.Generator().manual_seed(13)
+    lam = torch.tensor(0.37, device=cuda)
+    for b, h, n, d in WIDE_DIFF_SITES:
+        _assert_diff_pair(*_dseb_views(g, b, n, h, d, dtype, cuda), lam, dtype, (b, h, n, d))
+    for b, h, n, m, d, dv in WIDE_DIFF_SHAPES:
+        q = (torch.randn(b, 2 * h, n, d, generator=g) * d**-0.5).to(cuda, dtype)
+        k = torch.randn(b, 2 * h, m, d, generator=g).to(cuda, dtype)
+        v = torch.randn(b, h, m, dv, generator=g).to(cuda, dtype)
+        do = torch.randn(b, h, n, dv, generator=g).to(cuda, dtype)
+        _assert_diff_pair(q, k, v, do, lam, dtype, (b, h, n, m, d, dv))
+
+
+@pytest.mark.cuda
+def test_cuda_wide_diff_repeats_and_limits(cuda):
+    """The wide K1 and K3 in both dtypes write each output element from one
+    block: two runs give the same bits in o, both LSEs, dq, dk, dv, the per-row
+    δ₁, δ₂ and dλ. Past ``HEAD_DIMS`` (d 1024, dv 2048) both raise, naming the
+    ROADMAP item; K5–K8 keep 128."""
+    g = torch.Generator().manual_seed(14)
+    lam = torch.tensor(0.37, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, h, d in [(2, 784, 2, 128), (1, 196, 1, 512)]:
+            q, k, v, do = _dseb_views(g, b, n, h, d, dtype, cuda)
+            first = K.diff_attention_interleaved_fwd(q, k, v, lam)
+            again = K.diff_attention_interleaved_fwd(q, k, v, lam)
+            grads = [K.diff_attention_interleaved_bwd(q, k, v, lam, first[1], first[2], do) for _ in range(2)]
+            deltas = [_diff_bwd_with_deltas(q, k, v, lam, first[1], first[2], do) for _ in range(2)]
+            torch.cuda.synchronize()
+            for a, b_ in zip((*first, *grads[0], *deltas[0]), (*again, *grads[1], *deltas[1])):
+                assert torch.equal(a, b_), (dtype, b, n, h, d)
+            assert torch.equal(grads[0][3], -deltas[0][4].sum())
+    assert K.HEAD_DIMS["diff_attention_interleaved_fwd"] == (1024, 2048)
+    assert K.HEAD_DIMS["diff_attention_interleaved_bwd"] == (1024, 2048)
+    for d, dv in [(1032, 16), (16, 2056), (1032, 2056)]:
+        q, k = torch.zeros(1, 2, 8, d, device=cuda), torch.zeros(1, 2, 8, d, device=cuda)
+        v = torch.zeros(1, 1, 8, dv, device=cuda)
+        with pytest.raises(ValueError, match="item 13"):
+            K.diff_attention_interleaved_fwd(q, k, v, lam)
+        with pytest.raises(ValueError, match="item 13"):
+            K.diff_attention_interleaved_bwd(q, k, v, lam, torch.zeros(1, 1, 8, device=cuda),
+                                             torch.zeros(1, 1, 8, device=cuda), v)
+    q = torch.zeros(1, 1, 8, 136, device=cuda)
+    with pytest.raises(ValueError, match="item 13"):
+        K.diff_attention_fwd(q, q, q, q, q, lam)
 
 
 @pytest.mark.cuda
